@@ -1,0 +1,68 @@
+"""Carry state between this package and the JAX package as numpy trees.
+
+The server has no weights; what it carries from step to step is its
+per-channel DSP state, the channel table and the waterfall view table.
+``state_from_numpy`` takes the JAX package's ``HopState``,
+``ChannelTable`` or ``WaterfallViews`` with numpy leaves (for example
+``jax.tree.map(np.asarray, state)``) and returns this package's type on
+a device; ``state_to_numpy`` returns this package's state with numpy
+leaves, fields named as in the JAX package.  Nothing here imports JAX:
+the JAX types are read by their field names.
+
+The JAX ``AudioState`` also holds carries of stages this package
+rejects at config time (decimator, stereo, noise reduction, RDS,
+de-emphasis); they are unused and not carried over.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.agc import AGCState, DCBlockerState
+from .ops.channelizer import ChannelState
+from .pipeline import (
+    AudioState, HopState, WaterfallViews, channels_from_numpy, to_device,
+)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return to_device(np.asarray(a), None, device)
+
+
+def _part(cls, src, device):
+    return cls(*(_tensor(getattr(src, f), device) for f in cls._fields))
+
+
+def state_from_numpy(tree, device="cpu"):
+    """JAX HopState / ChannelTable / WaterfallViews (numpy leaves) ->
+    this package's HopState / ChannelTable / WaterfallViews."""
+    fields = getattr(tree, "_fields", ())
+    if "frame" in fields and "audio" in fields:
+        a = tree.audio
+        return HopState(
+            frame=int(np.asarray(tree.frame)),
+            audio=AudioState(chan=_part(ChannelState, a.chan, device),
+                             dc=_part(DCBlockerState, a.dc, device),
+                             agc=_part(AGCState, a.agc, device)))
+    if "m_idx" in fields:
+        return channels_from_numpy(tree.l, tree.r, tree.m_idx, tree.mode,
+                                   tree.active, am_env=tree.am_env,
+                                   device=device)
+    if "start" in fields and "length" in fields:
+        return _part(WaterfallViews, tree, device)
+    raise TypeError(f"not a HopState, ChannelTable or WaterfallViews: "
+                    f"{type(tree).__name__}")
+
+
+def state_to_numpy(state):
+    """This package's HopState / ChannelTable / WaterfallViews with
+    every leaf as a numpy array (the same NamedTuple types)."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(state_to_numpy(v) for v in state))
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    if isinstance(state, bool):
+        return np.bool_(state)
+    return np.int32(state)
+

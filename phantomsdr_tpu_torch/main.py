@@ -1,0 +1,139 @@
+"""CLI entry: ``python -m phantomsdr_tpu_torch -c config.toml``.
+
+Mirrors the reference main (reference: src/spectrumserver.cpp:299-372):
+parse -c/--config TOML, reopen stdin binary, build the sample source
+for the configured wire format, start the DSP driver and the serving
+edge, install SIGINT shutdown.  Single process, one device:
+``--device cuda`` (the default) or ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import faulthandler
+import signal
+import socket
+import sys
+
+from aiohttp import web
+
+from .config import load_config
+from .runtime.driver import DSPDriver, SampleSource
+from .runtime.server import SpectrumServer
+
+
+def make_site(runner, host: str, port: int):
+    """Listening site for the serving edge, reference listen semantics
+    (src/spectrumserver.cpp:239-243: try IPv6 first, fall back to
+    IPv4).  For the default all-interfaces bind this opens one IPv6
+    dual-stack socket (IPV6_V6ONLY off), so v4 AND v6 clients reach a
+    default deployment through the single listener; hosts without v6
+    support fall back to the plain v4 bind.  An explicit ``[server]
+    host`` is honored verbatim.  Returns (site, display_host)."""
+    if host == "0.0.0.0":
+        sock = None
+        try:
+            sock = socket.socket(socket.AF_INET6, socket.SOCK_STREAM)
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            sock.setsockopt(socket.IPPROTO_IPV6, socket.IPV6_V6ONLY, 0)
+            sock.bind(("::", port))
+            return web.SockSite(runner, sock, backlog=8192), "[::]"
+        except OSError:
+            if sock is not None:
+                sock.close()
+    return (web.TCPSite(runner, host, port, backlog=8192,
+                        reuse_address=True), host)
+
+
+def build(cfg, stream, loop_file=False, throttle=0.0, device="cuda"):
+    """(server, driver) for one device; the caller starts the driver and
+    runs ``server.app``."""
+    # build the native codec library up front, not on the serving path
+    if cfg.audio_compression == "flac":
+        from .runtime.codecs import _load_hostlib
+
+        _load_hostlib()
+    server = SpectrumServer(cfg)
+    source = SampleSource(cfg, stream, loop_file=loop_file,
+                          throttle_sps=throttle)
+    driver = DSPDriver(
+        cfg, source, server.channels,
+        consumer=server.dispatch_threadsafe,
+        waterfall_registry=server.waterfalls,
+        waterfall_active=server.waterfall_active,
+        audio_active=server.audio_active,
+        device=device,
+    )
+    server.driver = driver
+    return server, driver
+
+
+def main(argv=None):
+    # kill -USR1 <pid> dumps all thread stacks to stderr (debugging aid)
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    ap = argparse.ArgumentParser(prog="phantomsdr-tpu-torch")
+    ap.add_argument("-c", "--config", default="config.toml",
+                    help="config file (=config.toml)")
+    ap.add_argument("--input-file", default=None,
+                    help="read samples from a file instead of stdin")
+    ap.add_argument("--loop", action="store_true",
+                    help="loop the input file forever")
+    ap.add_argument("--throttle", action="store_true",
+                    help="throttle file replay to the configured sps")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="compute device (=cuda); cpu runs the plain "
+                         "PyTorch versions of the kernels")
+    args = ap.parse_args(argv)
+
+    cfg = load_config(args.config)
+    if args.input_file:
+        stream = open(args.input_file, "rb")
+    else:
+        stream = sys.stdin.buffer
+
+    server, driver = build(cfg, stream, loop_file=args.loop,
+                           throttle=cfg.sps if args.throttle else 0.0,
+                           device=args.device)
+    driver.start()
+
+    async def _run():
+        runner = web.AppRunner(server.app)
+        await runner.setup()
+        site, bind_host = make_site(runner, cfg.host, cfg.port)
+        try:
+            await site.start()
+        except OSError:
+            # bind failed: stop the driver threads before exiting or the
+            # interpreter teardown races the device thread
+            driver.stop()
+            raise
+        print(f"phantomsdr-tpu-torch serving on {bind_host}:{cfg.port} "
+              f"(fft_size={cfg.fft_size}, sps={cfg.sps}, "
+              f"{'real' if cfg.is_real else 'iq'}, {args.device})",
+              flush=True)
+        reg_task = None  # keep a strong ref: the loop holds tasks weakly
+        if cfg.register_enable:
+            from .runtime.register import registration_task
+
+            reg_task = asyncio.create_task(registration_task(
+                cfg, lambda: len(server.event_conns)))
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+        await stop.wait()
+        if reg_task is not None:
+            reg_task.cancel()
+        driver.stop()
+        await runner.cleanup()
+
+    try:
+        asyncio.run(_run())
+    finally:
+        if stream is not sys.stdin.buffer:
+            stream.close()
+
+
+if __name__ == "__main__":
+    main()

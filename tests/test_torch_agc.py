@@ -1,0 +1,129 @@
+"""PyTorch port vs the JAX package: DC blocker, look-ahead AGC (the
+plain version of kernel K-AGC) and the int16 conversion, on CPU."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from phantomsdr_tpu.ops import agc as jagc
+from phantomsdr_tpu.ops.channelizer import float_to_int16 as jf2i
+
+from phantomsdr_tpu_torch.ops import agc
+from phantomsdr_tpu_torch.ops.channelizer import float_to_int16
+from phantomsdr_tpu_torch.ops.cuda.agc import agc_int16
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_dc_blocker_matches_jax_across_blocks():
+    rng = np.random.default_rng(7)
+    d, c, length = agc.dc_blocker_delay(12000), 3, 180 * 4
+    x0 = (rng.standard_normal((c, 2 * length)) + 0.5).astype(np.float32)
+    js = jagc.init_dc_state(c, d)
+    ts = agc.init_dc_state(c, d)
+    for blk in range(2):
+        x = x0[:, blk * length:(blk + 1) * length]
+        js, jy = jagc.dc_blocker(js, jnp.asarray(x), d)
+        ts, ty = agc.dc_blocker(ts, t(x), d)
+        # cumulative sums in another association order: float32 rounding
+        # of the running sums (|sum| ~ 1e3 here) over d
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=2e-5,
+                                   rtol=0)
+        np.testing.assert_array_equal(ts.tail.numpy(), np.asarray(js.tail))
+
+
+@pytest.mark.parametrize("sr", [2000, 12000])
+def test_agc_matches_jax_across_blocks(sr):
+    """Same inputs through both: the window max is exact and the gain
+    recursion does the same float32 operations in the same order, so
+    the outputs agree to float32 rounding."""
+    rng = np.random.default_rng(sr)
+    params = agc.make_agc_params(sr)
+    assert params == jagc.make_agc_params(sr)
+    w = params.window
+    c, length = 3, 720
+    nblk = -(-2 * w // length) + 1          # well past the warm-up
+    x0 = (0.3 * rng.standard_normal((c, length * nblk))).astype(np.float32)
+    x0[:, ::37] *= 5.0                      # peaks exercise the attack path
+    x0[1] *= 40.0
+    js = jagc.init_agc_state(c, w)
+    ts = agc.init_agc_state(c, w)
+    for blk in range(nblk):
+        x = x0[:, blk * length:(blk + 1) * length]
+        js, jy = jagc.agc_process(js, jnp.asarray(x), params)
+        ts, ty = agc.agc_process(ts, t(x), params)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-6,
+                                   atol=1e-7, err_msg=f"block {blk}")
+        np.testing.assert_allclose(ts.gain.numpy(), np.asarray(js.gain),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(ts.seen.numpy(), np.asarray(js.seen))
+        np.testing.assert_array_equal(ts.tail.numpy(), np.asarray(js.tail))
+    assert (np.abs(ty.numpy()) > 0).all(axis=1).any()   # audio came out
+
+
+def test_sliding_max_abs_exact():
+    """The doubling window max (the formulation K-AGC uses) equals the
+    brute-force sliding max exactly."""
+    rng = np.random.default_rng(3)
+
+    def brute(y, w, out_len):
+        a = np.abs(y)
+        return np.stack([a[..., i:i + w].max(-1) for i in range(out_len)], -1)
+
+    cases = [(int(rng.integers(1, 40)), int(rng.integers(1, 90)),
+              int(rng.integers(0, 30))) for _ in range(60)]
+    cases += [(180, 2400, 0), (6480, 2400, 0), (180, 7, 0), (180, 180, 0),
+              (180, 181, 0), (1, 1, 0), (3, 500, 11), (5, 1024, 0),
+              (5, 1023, 0), (5, 1025, 0)]
+    for out_len, w, extra in cases:
+        y = rng.standard_normal((3, out_len + w - 1 + extra)).astype(
+            np.float32)
+        np.testing.assert_array_equal(
+            agc.sliding_max_abs(t(y), w, out_len).numpy(),
+            brute(y, w, out_len), err_msg=f"w={w} L={out_len}")
+
+
+def test_seen_clamps_at_the_window():
+    params = agc.make_agc_params(2000)
+    w = params.window
+    st = agc.init_agc_state(2, w)
+    st = st._replace(seen=torch.tensor([0, w], dtype=torch.int32))
+    x = torch.ones((2, 3 * w // 2), dtype=torch.float32)
+    for _ in range(3):
+        st, _ = agc.agc_process(st, x, params)
+        assert int(st.seen.max()) <= w
+    assert st.seen.tolist() == [w, w]
+
+
+def test_float_to_int16_rounds_half_up_like_jax():
+    lsb = 1.0 / 16384.0
+    ties = np.float32([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 100.5]) * lsb
+    x = np.concatenate([ties, np.float32([0.0, 1.9999, 2.0, -2.0, -2.5,
+                                          1e9, -1e9])]).astype(np.float32)
+    got = float_to_int16(t(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jf2i(jnp.asarray(x))))
+    # half up, not half to even
+    np.testing.assert_array_equal(got[:7], [1, 2, 3, 0, -1, -2, 101])
+    assert got.dtype == np.int16 and got[-2] == 32767 and got[-1] == -32768
+
+
+def test_agc_int16_plain_writes_the_packed_layout():
+    """agc_int16 (plain on CPU) == agc_process + float_to_int16, written
+    hop-major into [B, C, half]."""
+    rng = np.random.default_rng(1)
+    params = agc.make_agc_params(2000)
+    b, c, half = 5, 3, 90
+    x = (0.2 * rng.standard_normal((c, b * half))).astype(np.float32)
+    st = agc.init_agc_state(c, params.window)._replace(
+        seen=torch.full((c,), params.window, dtype=torch.int32),
+        gain=torch.ones(c))
+    want_st, want = agc.agc_process(st, t(x), params)
+    out = torch.empty((b, c, half), dtype=torch.int16)
+    got_st = agc_int16(st, t(x), params, out)
+    want16 = float_to_int16(want).numpy().reshape(c, b, half).transpose(1, 0, 2)
+    np.testing.assert_array_equal(out.numpy(), want16)
+    for a_, b_ in zip(got_st, want_st):
+        np.testing.assert_array_equal(a_.numpy(), b_.numpy())

@@ -1,0 +1,266 @@
+"""PyTorch port vs the JAX package: the whole hop step (``HopPipeline``)
+over consecutive steps, in every waterfall mode, with resets, channel
+bucketing, the parity seed and a mid-stream state carried over from
+JAX (``interop``), on CPU.  Sizes are ``__graft_entry__._small_cfg``'s
+(FFT 4096, 16 channels, hop_batch 4, IQ s16) plus one real-input case.
+
+Tolerances: int16 audio within 4 LSB (tests/test_pipeline.py), channel
+power rtol 2e-4, waterfall at most one int8 step on < 0.1% of bins.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from phantomsdr_tpu.config import config_from_dict as jconfig
+from phantomsdr_tpu.pipeline import (
+    HopPipeline as JPipeline, WaterfallViews as JViews,
+    channels_from_numpy as jtable,
+)
+from phantomsdr_tpu.ops.quantize import pyramid_level_offsets
+
+from phantomsdr_tpu_torch import interop
+from phantomsdr_tpu_torch.config import config_from_dict
+from phantomsdr_tpu_torch.pipeline import (
+    HopPipeline, WaterfallViews, channels_from_numpy, unpack_outputs,
+)
+
+WARM_STEPS = 5          # past the 200 ms AGC look-ahead at 12 kHz
+
+
+def cfg_dict(signal="iq"):
+    return {
+        "input": {"sps": 192000, "frequency": 7000000, "fft_size": 4096,
+                  "signal": signal, "audio_sps": 12000,
+                  "waterfall_size": 512, "driver": {"format": "s16"}},
+        "tpu": {"hop_batch": 4, "max_channels": 16},
+    }
+
+
+def table_arrays(cfg, k=None):
+    c = cfg.max_channels
+    rsize = cfg.fft_result_size
+    l = np.linspace(10, rsize - 300, c).astype(np.int32)
+    am_env = np.zeros(c, bool)
+    am_env[6] = True                      # one AM listener on envelope
+    active = np.ones(c, bool)
+    active[-1] = False
+    arrays = dict(l=l, r=l + 100, m_idx=l + 50, mode=np.arange(c) % 4,
+                  active=active, am_env=am_env)
+    if k is not None:
+        arrays = {key: v[:k] for key, v in arrays.items()}
+    return arrays
+
+
+def view_arrays(cfg):
+    offs = pyramid_level_offsets(cfg.fft_result_size, cfg.downsample_levels)
+    start = np.array([offs[0] + 100, offs[1] + 5,
+                      offs[cfg.downsample_levels - 1], offs[0]], np.int32)
+    length = np.array([512, 300, cfg.waterfall_size, 0], np.int32)
+    return start, length
+
+
+class Stream:
+    """Continuous s16 capture (two tones + noise), cut into halo'd
+    blocks like runtime.driver.SampleSource."""
+
+    def __init__(self, cfg, seed=42):
+        self.wph = cfg.hop_size * (1 if cfg.is_real else 2)
+        self.blk = cfg.hop_batch * self.wph
+        self.rng = np.random.default_rng(seed)
+        self.halo = np.zeros(self.wph, np.int16)
+        self.pos = 0
+
+    def next(self):
+        n = np.arange(self.pos, self.pos + self.blk)
+        self.pos += self.blk
+        x = (self.rng.integers(-3000, 3000, self.blk)
+             + 8000 * np.sin(2 * np.pi * 0.13 * n)
+             + 5000 * np.sin(2 * np.pi * 0.3711 * n)).astype(np.int16)
+        block = np.concatenate([self.halo, x])
+        self.halo = x[-self.wph:]
+        return block
+
+
+class Pair:
+    """The JAX and the PyTorch pipeline on one config, fed the same
+    blocks."""
+
+    def __init__(self, signal="iq"):
+        self.jc = jconfig(cfg_dict(signal))
+        self.tc = config_from_dict(cfg_dict(signal))
+        self.jp = JPipeline(self.jc)
+        self.tp = HopPipeline(self.tc, device="cpu")
+        start, length = view_arrays(self.jc)
+        self.jviews = JViews(start=jnp.asarray(start),
+                             length=jnp.asarray(length))
+        self.tviews = WaterfallViews(start=torch.from_numpy(start),
+                                     length=torch.from_numpy(length))
+
+    def tables(self, k=None):
+        arrays = table_arrays(self.jc, k)
+        return jtable(**arrays), channels_from_numpy(**arrays)
+
+    def warm_jax(self, steps=WARM_STEPS):
+        """JAX state after `steps` steps of a fresh stream."""
+        stream = Stream(self.jc)
+        jt, _ = self.tables()
+        js = self.jp.init_state()
+        for _ in range(steps):
+            js, _ = self.jp.step(js, jnp.asarray(stream.next()), jt,
+                                 self.jviews, "views")
+        return js, stream
+
+
+@pytest.fixture(scope="module")
+def iq():
+    return Pair("iq")
+
+
+def compare(jo, to, mode):
+    ja = np.asarray(jo.audio).astype(int)
+    ta = to.audio.numpy().astype(int)
+    assert ta.shape == ja.shape
+    assert np.abs(ta - ja).max() <= 4
+    np.testing.assert_allclose(to.avg_power.numpy(), np.asarray(jo.avg_power),
+                               rtol=2e-4, atol=1e-12)
+    if mode == "views":
+        jw, tw = np.asarray(jo.wf).astype(int), to.wf.numpy().astype(int)
+    elif mode == "full":
+        jw, tw = np.asarray(jo.pyramid).astype(int), to.pyramid.numpy().astype(int)
+    else:
+        assert to.wf.shape[0] == 0 and to.pyramid.shape[1] == 0
+        return np.abs(ja).max()
+    assert tw.shape == jw.shape
+    d = np.abs(tw - jw)
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3
+    return np.abs(ja).max()
+
+
+def run_pair(pair, js, ts, stream, mode, steps=3, jt=None, tt=None,
+             resets=None):
+    if jt is None:
+        jt, tt = pair.tables()
+    peak = 0
+    for s in range(steps):
+        raw = stream.next()
+        jr = tr = None
+        if resets is not None and s == 0:
+            jr, tr = jnp.asarray(resets), torch.from_numpy(resets)
+        frame0 = int(js.frame)
+        due = pair.jp.default_due_idx(frame0)
+        js, jo = pair.jp.step(js, jnp.asarray(raw), jt, pair.jviews, mode,
+                              reset=jr, due_idx=due)
+        ts, to = pair.tp.step(ts, torch.from_numpy(raw), tt, pair.tviews,
+                              mode, reset=tr,
+                              due_idx=torch.from_numpy(np.array(due)))
+        assert ts.frame == int(js.frame)
+        peak = max(peak, compare(jo, to, mode))
+    return js, ts, peak
+
+
+@pytest.mark.parametrize("mode", ["views", "full", "off"])
+def test_steps_match_jax_from_carried_state(iq, mode):
+    """Three consecutive steps in each waterfall mode, starting from a
+    mid-stream JAX state carried over with interop.state_from_numpy."""
+    js, stream = iq.warm_jax()
+    ts = interop.state_from_numpy(jax.tree.map(np.asarray, js))
+    js, ts, peak = run_pair(iq, js, ts, stream, mode)
+    assert peak > 1000                     # past the AGC warm-up: real audio
+    got = interop.state_to_numpy(ts)
+    for part in ("chan", "dc", "agc"):
+        for name in getattr(got.audio, part)._fields:
+            want = np.asarray(getattr(getattr(js.audio, part), name))
+            np.testing.assert_allclose(
+                getattr(getattr(got.audio, part), name), want,
+                rtol=1e-3, atol=1e-4, err_msg=f"{part}.{name}")
+
+
+def test_cold_start_matches_jax(iq):
+    stream = Stream(iq.jc, seed=3)
+    js, ts = iq.jp.init_state(), iq.tp.init_state()
+    _, _, peak = run_pair(iq, js, ts, stream, "views", steps=WARM_STEPS + 2)
+    assert peak > 100                      # the AGC has opened
+
+
+def test_reset_mask_matches_jax(iq):
+    js, stream = iq.warm_jax()
+    ts = interop.state_from_numpy(jax.tree.map(np.asarray, js))
+    resets = np.zeros(iq.jc.max_channels, np.int32)
+    resets[1] = 1                          # RESET_FULL
+    resets[2] = 2                          # RESET_AGC
+    js, ts, _ = run_pair(iq, js, ts, stream, "off", resets=resets)
+    assert int(ts.audio.agc.seen[1]) == int(np.asarray(js.audio.agc.seen)[1])
+    assert int(ts.audio.agc.seen[1]) < int(ts.audio.agc.seen[0])
+
+
+def test_resize_channel_rows_matches_jax(iq):
+    """Shrink to an 8-row bucket for a step, then grow back to 16."""
+    js, stream = iq.warm_jax()
+    ts = interop.state_from_numpy(jax.tree.map(np.asarray, js))
+    for k in (8, 16):
+        js = iq.jp.resize_channel_rows(js, k)
+        ts = iq.tp.resize_channel_rows(ts, k)
+        assert ts.audio.chan.ssb_prev.shape[0] == k
+        jt, tt = iq.tables(k)
+        js, ts, _ = run_pair(iq, js, ts, stream, "views", steps=2, jt=jt,
+                             tt=tt)
+
+
+def test_init_state_seeds_parity_like_jax(iq):
+    """A rebuild mid-stream seeds only the parity of frame0; an odd seed
+    flips the (-1)^(m*hop) fix-up the same way in both packages."""
+    assert iq.tp.init_state(7).frame == 1
+    assert iq.tp.init_state(8).frame == 0
+    stream = Stream(iq.jc, seed=9)
+    js, ts = iq.jp.init_state(7), iq.tp.init_state(7)
+    _, _, peak = run_pair(iq, js, ts, stream, "off", steps=WARM_STEPS + 2)
+    assert peak > 100
+
+
+def test_real_input_matches_jax():
+    pair = Pair("real")
+    js, stream = pair.warm_jax()
+    ts = interop.state_from_numpy(jax.tree.map(np.asarray, js))
+    _, _, peak = run_pair(pair, js, ts, stream, "views", steps=2)
+    assert peak > 0
+
+
+def test_packed_buffer_round_trips_through_unpack(iq):
+    js, stream = iq.warm_jax(1)
+    _, tt = iq.tables()
+    ts = iq.tp.init_state()
+    ts, out = iq.tp.step(ts, torch.from_numpy(stream.next()), tt, iq.tviews,
+                         "views")
+    cfg = iq.tc
+    audio, pwr, wf = unpack_outputs(
+        out.packed.numpy(), cfg.hop_batch, cfg.max_channels,
+        cfg.audio_fft_size // 2, iq.tp.due_cap, iq.tviews.start.shape[0],
+        iq.tp.view_cap)
+    np.testing.assert_array_equal(audio, out.audio.numpy())
+    np.testing.assert_array_equal(pwr, out.avg_power.numpy())
+    np.testing.assert_array_equal(wf, out.wf.numpy())
+    assert out.packed.numel() == audio.nbytes + pwr.nbytes + wf.nbytes
+
+
+def test_interop_round_trip(iq):
+    js, _ = iq.warm_jax(2)
+    jnp_state = jax.tree.map(np.asarray, js)
+    back = interop.state_to_numpy(interop.state_from_numpy(jnp_state))
+    assert back.frame == jnp_state.frame
+    for part in ("chan", "dc", "agc"):
+        for name in getattr(back.audio, part)._fields:
+            np.testing.assert_array_equal(
+                getattr(getattr(back.audio, part), name),
+                getattr(getattr(jnp_state.audio, part), name))
+    jt, _ = iq.tables()
+    table = interop.state_from_numpy(jax.tree.map(np.asarray, jt))
+    assert table.need_pll
+    np.testing.assert_array_equal(table.am_env.numpy(), np.asarray(jt.am_env))
+    views = interop.state_from_numpy(jax.tree.map(np.asarray, iq.jviews))
+    np.testing.assert_array_equal(views.start.numpy(),
+                                  np.asarray(iq.jviews.start))
+    with pytest.raises(TypeError):
+        interop.state_from_numpy((1, 2))
