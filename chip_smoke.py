@@ -12,7 +12,10 @@ Phases, one JSON line each (any failure exits non-zero):
 3. kernels   each kernel against its plain PyTorch version at the shapes
              the main path gives it (the server config of bench.py:
              u8 IQ at 35 MSPS, 2^20-point FFT, 36 hops a step, 128
-             channels, 128 waterfall views), with times and bounds
+             channels, 128 waterfall views), with times and bounds;
+             K-PLL over three calls that carry its phase and frequency,
+             and K-PLL and K-AGC beside their chain floor (the serial
+             loop alone, timed by the kernel's probe entry point)
 4. small     the whole step on the card against the whole step on the
              CPU (plain versions) at a small config
 5. main      HopPipeline.step at full width: 10 'views' steps and 2
@@ -63,7 +66,9 @@ def emit(obj) -> None:
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
+    """Median milliseconds of one fn() call, each call alone between two
+    CUDA events and synchronised, so the host's cost of issuing it counts
+    too where the device would wait for it."""
     import torch
 
     for _ in range(warmup):
@@ -78,6 +83,47 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, calls: int = 10, rounds: int = 3) -> float:
+    """Milliseconds per fn() call on the device: ``calls`` calls back to
+    back between two CUDA events, so that the host's issue runs ahead of
+    the device; the median of ``rounds`` such runs."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def device_us_by_kernel(fn, calls: int = 5) -> dict:
+    """Device microseconds per fn() call of each CUDA kernel it launches
+    (torch.profiler), by the kernel's function name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + ev.device_time_total / calls
+    return out
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -251,48 +297,73 @@ def phase_kernels(cfg, raw0):
               f"[{d}, {p}] int8",
         max_abs_err=wf_err, frac_differing=wf_frac,
         tolerance="<= 1 int8 step on < 0.1% of bins",
-        ms=time_ms(lambda: waterfall.waterfall_rows(spec, rows, **kw), 20),
+        ms=device_ms(lambda: waterfall.waterfall_rows(spec, rows, **kw)),
+        ms_one_call=time_ms(
+            lambda: waterfall.waterfall_rows(spec, rows, **kw), 20),
         plain_ms=time_ms(
             lambda: waterfall.waterfall_rows_plain(spec, rows, **kw), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     del spec, got, want
 
     # ---- K-PLL on [C, B*half] AM streams: carriers a few Hz off, 0.5
-    # modulated baseband plus noise
+    # modulated baseband plus noise; three consecutive calls carry the
+    # phase and frequency from one to the next
     c, half = cfg.max_channels, cfg.audio_fft_size // 2
     n = cfg.hop_batch * half
-    t = torch.arange(n, device="cuda", dtype=torch.float32)
+    calls = 3
+    t = torch.arange(calls * n, device="cuda", dtype=torch.float32)
     off = (torch.rand(c, 1, device="cuda", generator=gen) - 0.5) * 0.02
     ph0 = torch.rand(c, 1, device="cuda", generator=gen) * 6.0
-    car = torch.polar(torch.ones(c, n, device="cuda"), off * t + ph0)
+    car = torch.polar(torch.ones(c, calls * n, device="cuda"), off * t + ph0)
     msg = 1.0 + 0.5 * torch.sin(0.1 * t)[None, :]
-    noise = torch.randn(c, n, 2, device="cuda", generator=gen) * 0.01
-    carrier = (car + torch.view_as_complex(noise)).contiguous()
-    baseband = (car * msg).to(torch.complex64).contiguous()
+    noise = torch.randn(c, calls * n, 2, device="cuda", generator=gen) * 0.01
+    carrier_all = car + torch.view_as_complex(noise)
+    baseband_all = (car * msg).to(torch.complex64)
+    segs = [(carrier_all[:, k * n:(k + 1) * n].contiguous(),
+             baseband_all[:, k * n:(k + 1) * n].contiguous())
+            for k in range(calls)]
+    carrier, baseband = segs[0]
     phase0 = torch.zeros(c, device="cuda")
     freq0 = torch.zeros(c, device="cuda")
-    got = pll.am_sync_detect(carrier, baseband, phase0, freq0)
-    want = pll.am_sync_detect_plain(carrier, baseband, phase0, freq0)
-    torch.cuda.synchronize()
-    scale = float(baseband.abs().max())
-    pll_err = float((got[0] - want[0]).abs().max())
+    scale = float(baseband_all.abs().max())
+    pll_err = 0.0
+    kcar = pcar = (phase0, freq0)
+    for k, (seg_c, seg_b) in enumerate(segs):
+        got = pll.am_sync_detect(seg_c, seg_b, *kcar)
+        want = pll.am_sync_detect_plain(seg_c, seg_b, *pcar)
+        torch.cuda.synchronize()
+        pll_err = max(pll_err, float((got[0] - want[0]).abs().max()))
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+            raise AssertionError(f"K-PLL vs plain: phase/freq carries differ "
+                                 f"after call {k + 1}")
+        kcar, pcar = got[1:], want[1:]
     if not pll_err <= PLL_ATOL * scale:
         raise AssertionError(f"K-PLL vs plain: max |diff| {pll_err} > "
                              f"{PLL_ATOL} * {scale}")
+    del carrier_all, baseband_all, car, msg, noise, t
     b_ms, b_by = bound_ms(c * n * (8 + 8 + 4) + 4 * c * 4,
                           c * n * PLL_OPS_PER_SAMPLE)
+
+    def run_pll():
+        pll.am_sync_detect(carrier, baseband, phase0, freq0)
+
     rows_out.append(dict(
         name="K-PLL AM carrier PLL", route="cuda",
         source="phantomsdr_tpu_torch/csrc/pll.cu",
         replaces="phantomsdr_tpu/ops/channelizer.py:155 (lax.scan via "
                  "ops/unroll.py:60)",
         shape=f"[{c}, {n}] c64 carrier + baseband -> [{c}, {n}] f32",
-        max_abs_err=pll_err,
-        tolerance=f"|diff| <= {PLL_ATOL} * max|baseband|",
-        ms=time_ms(lambda: pll.am_sync_detect(carrier, baseband, phase0,
-                                              freq0), 10),
+        max_abs_err=pll_err, chained_calls=calls,
+        tolerance=f"|diff| <= {PLL_ATOL} * max|baseband|, carries equal",
+        ms=device_ms(run_pll),
+        ms_one_call=time_ms(run_pll, 10),
         plain_ms=time_ms(lambda: pll.am_sync_detect_plain(
             carrier, baseband, phase0, freq0), 1, warmup=0),
+        chain_floor_ms=device_ms(lambda: pll.chain_probe(carrier, phase0,
+                                                         freq0)),
+        chain_reconverging_ms=device_ms(lambda: pll.chain_probe(
+            carrier, phase0, freq0, reconverge=True)),
+        device_us_by_kernel=device_us_by_kernel(run_pll),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         chain_note=f"{n} dependent loop steps per channel"))
 
@@ -331,9 +402,15 @@ def phase_kernels(cfg, raw0):
                  "agc.py:108 (_sliding_max_abs)",
         shape=f"[{c}, {n}] f32, window {w} -> [{b}, {c}, {half}] int16",
         max_abs_err=agc_err, tolerance="int16 |diff| <= 1",
-        ms=time_ms(lambda: agc.agc_int16(state, x, params, out_k), 10),
+        ms=device_ms(lambda: agc.agc_int16(state, x, params, out_k)),
+        ms_one_call=time_ms(lambda: agc.agc_int16(state, x, params, out_k),
+                            10),
         plain_ms=time_ms(lambda: agc.agc_int16_plain(state, x, params,
                                                      out_p), 1, warmup=0),
+        chain_floor_ms=device_ms(lambda: agc.chain_probe(x, state.gain,
+                                                         params)),
+        device_us_by_kernel=device_us_by_kernel(
+            lambda: agc.agc_int16(state, x, params, out_k)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         chain_note=f"{n} dependent gain steps per channel"))
     for row in rows_out:

@@ -15,18 +15,32 @@
 // written straight into the [B, C, half] audio slice of the packed
 // output buffer (t = b*half + s), with the new tail, gain and seen.
 //
-// The window max is exact by doubling: after k passes buffer m holds
-// max|y[i .. i+2^k-1]|, and peak[t] = max(m[t], m[t + W - 2^k]) with
-// 2^k <= W < 2^(k+1).  Both buffers (2 * (W-1+L) floats, 71 KB at
-// W = 2400, L = 6480) live in shared memory, or in a device scratch
-// buffer the wrapper passes when they exceed it.
-//
 // Bound: the gain recursion, a dependent chain of L steps per channel
-// (a subtract, a multiply, a subtract and a select per step); its
-// inputs (desired) are precomputed in parallel so the chain only reads
-// shared memory.  All channels run at once, one block each.
-// Round-to-nearest intrinsics keep the float32 operations separate,
-// like the plain version.
+// (a subtract, a multiply, a subtract and a select per step).
+// agc_chain_probe runs the same loop over inputs held in registers (no
+// loads, no stores), and its time is the floor this kernel is measured
+// against.
+//
+// Design: the chain thread runs alone, with everything else in parallel
+// before or after it.  (A lane that other lanes must reconverge with
+// later gets convergence barriers around its branches, which lengthen
+// a chain; see csrc/pll.cu.)
+// - agc_kernel, one block of 512 threads per channel: load y (|y| for
+//   the window max; the new tail goes out on the way) and take the exact
+//   window max in radix-8 passes: after k passes buffer m holds
+//   max|y[i .. i+8^k-1]|, and peak[t] is the max of m at t, t+s, t+2s,
+//   ... and t+W-s, s = 8^k <= W < 8s (3 barrier-separated passes at
+//   W = 2400 instead of 12 doublings).  Then compute desired, and all
+//   threads but one exit.  That one runs the chain with no branch:
+//   before t0 = clamp(W-1-seen, 0, L) the gain is frozen and the output
+//   0, so it starts at t0, reads desired from shared memory four at a
+//   time (float4, the next group in flight) and stores each gain.
+// - agc_int16_kernel, one thread per sample: out = y * gain (0 before
+//   t0) as half-up int16 into the packed output.
+// The two window-max buffers (71 KB at W = 2400, L = 6480) live in
+// shared memory, or in a device scratch buffer the wrapper passes when
+// they exceed it.  Round-to-nearest intrinsics keep the float32
+// operations separate, like the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,84 +48,187 @@
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kRadix = 8;
+constexpr int kUnroll = 8;  // loads in flight per thread while loading y
+constexpr int kOutThreads = 256;
+
+__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
+
+// Floats of one window-max buffer for m = W-1+L samples: a multiple of
+// four (float4 reads), plus the chain's read-ahead past the end.
+__host__ __device__ __forceinline__ int buffer_floats(int m) {
+    return pad4(m) + 8;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+}
 
 __device__ __forceinline__ float sample(const float* tail, const float* x,
                                         int w1, int i) {
     return i < w1 ? tail[i] : x[i - w1];
 }
 
+// Where the chain starts: the first sample with seen+t+1 >= W.
+__device__ __forceinline__ int warm_up_end(int seen, int window, int len) {
+    return min(max(window - 1 - seen, 0), len);
+}
+
+__device__ __forceinline__ float agc_step(float g, float d, float attack,
+                                          float release) {
+    const float att = __fsub_rn(g, __fmul_rn(attack, __fsub_rn(g, d)));
+    const float rel = __fadd_rn(g, __fmul_rn(release, __fsub_rn(d, g)));
+    return d < g ? att : rel;
+}
+
+__device__ __forceinline__ float4 agc_step4(float& g, float4 d, float attack,
+                                            float release) {
+    float4 o;
+    o.x = g = agc_step(g, d.x, attack, release);
+    o.y = g = agc_step(g, d.y, attack, release);
+    o.z = g = agc_step(g, d.z, attack, release);
+    o.w = g = agc_step(g, d.w, attack, release);
+    return o;
+}
+
+// kScratch: the window-max buffers are in scratch (device memory), not
+// in shared memory; a compile-time choice, so that the chain's reads are
+// shared-memory loads when they can be.
+template <bool kScratch>
 __global__ void __launch_bounds__(kThreads)
 agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
            const float* __restrict__ gain0, const int* __restrict__ seen0,
-           int channels, int len, int window, float attack, float release,
-           float level, int half, int16_t* __restrict__ out,
-           float* __restrict__ tail_out, float* __restrict__ gain_out,
-           int* __restrict__ seen_out, float* __restrict__ scratch) {
-    extern __shared__ float smem[];
+           int len, int window, float attack, float release, float level,
+           float* __restrict__ gains, float* __restrict__ tail_out,
+           float* __restrict__ gain_out, int* __restrict__ seen_out,
+           float* __restrict__ scratch) {
+    extern __shared__ __align__(16) float smem[];
     const int c = blockIdx.x;
     const int w1 = window - 1;
     const int m = w1 + len;
-    float* a = scratch != nullptr ? scratch + 2LL * m * c : smem;
-    float* b = a + m;
+    float* a = kScratch ? scratch + 2LL * buffer_floats(m) * c : smem;
+    float* b = a + buffer_floats(m);
     const float* xc = x + static_cast<long long>(c) * len;
     const float* tc = tail + static_cast<long long>(c) * w1;
 
-    for (int i = threadIdx.x; i < m; i += kThreads) a[i] = fabsf(sample(tc, xc, w1, i));
-    for (int i = threadIdx.x; i < w1; i += kThreads)
-        tail_out[static_cast<long long>(c) * w1 + i] = sample(tc, xc, w1, len + i);
+    for (int i0 = threadIdx.x; i0 < m; i0 += kUnroll * kThreads) {
+        float v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            const int i = i0 + u * kThreads;
+            v[u] = i < m ? sample(tc, xc, w1, i) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            const int i = i0 + u * kThreads;
+            if (i < m) {
+                a[i] = fabsf(v[u]);
+                if (i >= len) tail_out[static_cast<long long>(c) * w1 + (i - len)] = v[u];
+            }
+        }
+    }
     __syncthreads();
 
-    // doubling window max
+    // radix-8 window max
     float* cur = a;
     float* nxt = b;
     int span = 1;
     int valid = m;
-    while (2 * span <= window) {
-        valid -= span;
-        for (int i = threadIdx.x; i < valid; i += kThreads)
-            nxt[i] = fmaxf(cur[i], cur[i + span]);
+    while (span * kRadix <= window) {
+        valid -= (kRadix - 1) * span;
+        for (int i = threadIdx.x; i < valid; i += kThreads) {
+            float v = cur[i];
+#pragma unroll
+            for (int q = 1; q < kRadix; ++q) v = fmaxf(v, cur[i + q * span]);
+            nxt[i] = v;
+        }
         __syncthreads();
         float* t = cur;
         cur = nxt;
         nxt = t;
-        span *= 2;
+        span *= kRadix;
     }
-    for (int t = threadIdx.x; t < len; t += kThreads) {
-        const float pk = fmaxf(cur[t], cur[t + window - span]);
+
+    // desired[t] into nxt[t] for t >= t0
+    const int seen = seen0[c];
+    const int t0 = warm_up_end(seen, window, len);
+    for (int t = t0 + threadIdx.x; t < len; t += kThreads) {
+        float pk = cur[t + window - span];
+        for (int o = 0; o < window - span; o += span) pk = fmaxf(pk, cur[t + o]);
         nxt[t] = __fdiv_rn(level, __fadd_rn(pk, 1e-10f));
     }
     __syncthreads();
+    if (threadIdx.x != 0) return;
 
-    // the gain recursion: nxt[t] holds desired[t] in, gain[t] out
-    const int seen = seen0[c];
-    if (threadIdx.x == 0) {
-        float g = gain0[c];
-#pragma unroll 8
-        for (int t = 0; t < len; ++t) {
-            const float d = nxt[t];
-            if (seen + t + 1 >= window) {
-                const float att = __fsub_rn(g, __fmul_rn(attack, __fsub_rn(g, d)));
-                const float rel = __fadd_rn(g, __fmul_rn(release, __fsub_rn(d, g)));
-                g = d < g ? att : rel;
-            }
-            nxt[t] = g;
-        }
-        gain_out[c] = g;
-        seen_out[c] = seen + len < window ? seen + len : window;
+    // the chain, alone: four samples a step, the next group's desired in
+    // flight while these run (two register groups in turn, so that no
+    // copy waits for a load; reads past len stay inside the padding)
+    float* gc = gains + static_cast<long long>(c) * pad4(len);
+    float g = gain0[c];
+    int t = t0;
+    for (; t < len && (t & 3); ++t) gc[t] = g = agc_step(g, nxt[t], attack, release);
+    float4 da = load4(nxt + t);
+    for (; t + 8 <= len; t += 8) {
+        const float4 db = load4(nxt + t + 4);
+        store4(gc + t, agc_step4(g, da, attack, release));
+        da = load4(nxt + t + 8);
+        store4(gc + t + 4, agc_step4(g, db, attack, release));
     }
-    __syncthreads();
+    if (t + 4 <= len) {
+        store4(gc + t, agc_step4(g, da, attack, release));
+        t += 4;
+    }
+    for (; t < len; ++t) gc[t] = g = agc_step(g, nxt[t], attack, release);
+    gain_out[c] = g;
+    seen_out[c] = seen + len < window ? seen + len : window;
+}
 
-    for (int t = threadIdx.x; t < len; t += kThreads) {
-        const float o = seen + t + 1 >= window
-                            ? __fmul_rn(sample(tc, xc, w1, t), nxt[t]) : 0.0f;
-        float v = __fsub_rn(floorf(__fadd_rn(__fmul_rn(o, 16384.0f), 32768.5f)),
-                            32768.0f);
-        v = fminf(fmaxf(v, -32768.0f), 32767.0f);
-        const int hb = t / half;
-        const int s = t - hb * half;
-        out[(static_cast<long long>(hb) * channels + c) * half + s] =
-            static_cast<int16_t>(v);
+// out[t] = y[t] * gain[t] from t0 on, else 0, as half-up int16 at
+// sample t = hb*half + s of the packed [B, C, half] slice; block row
+// blockIdx.y is channel c.
+__global__ void __launch_bounds__(kOutThreads)
+agc_int16_kernel(const float* __restrict__ x, const float* __restrict__ tail,
+                 const int* __restrict__ seen0, const float* __restrict__ gains,
+                 int channels, int len, int window, int half,
+                 int16_t* __restrict__ out) {
+    const int c = blockIdx.y;
+    const int t = blockIdx.x * kOutThreads + threadIdx.x;
+    if (t >= len) return;
+    const int w1 = window - 1;
+    const float y = sample(tail + static_cast<long long>(c) * w1,
+                           x + static_cast<long long>(c) * len, w1, t);
+    const float o = t >= warm_up_end(seen0[c], window, len)
+                        ? __fmul_rn(y, gains[static_cast<long long>(c) * pad4(len) + t])
+                        : 0.0f;
+    float v = __fsub_rn(floorf(__fadd_rn(__fmul_rn(o, 16384.0f), 32768.5f)), 32768.0f);
+    v = fminf(fmaxf(v, -32768.0f), 32767.0f);
+    const int hb = t / half;
+    const int s = t - hb * half;
+    out[(static_cast<long long>(hb) * channels + c) * half + s] = static_cast<int16_t>(v);
+}
+
+// The chain alone: the same four-step groups over |x[0..3]| held in
+// registers, no loads or stores inside it; one thread per channel,
+// alone like agc_kernel's.
+__global__ void __launch_bounds__(32)
+agc_chain_probe(const float* __restrict__ x, const float* __restrict__ gain0,
+                float* __restrict__ gain_out, int len, float attack, float release) {
+    if (threadIdx.x != 0) return;
+    const int c = blockIdx.x;
+    float g = gain0[c];
+    if (len > 0) {
+        const float* xc = x + static_cast<long long>(c) * len;
+        const float4 d = make_float4(fabsf(xc[0]), fabsf(xc[1 % len]),
+                                     fabsf(xc[2 % len]), fabsf(xc[3 % len]));
+        int t = 0;
+        for (; t + 4 <= len; t += 4) agc_step4(g, d, attack, release);
+        for (; t < len; ++t) g = agc_step(g, d.x, attack, release);
     }
+    gain_out[c] = g;
 }
 
 }  // namespace
@@ -122,25 +239,52 @@ extern "C" const char* kernel_error_string(int code) {
 
 // x: [channels, len] float32; tail: [channels, window-1]; gain0: [C]
 // float32; seen0: [C] int32; out: [len/half, channels, half] int16;
-// tail_out/gain_out/seen_out like the inputs; scratch: null (shared
-// memory) or 2 * (window-1+len) * channels floats.
+// tail_out/gain_out/seen_out like the inputs; gains: [channels,
+// pad4(len)] float32 scratch (rows 16-byte aligned); scratch: null
+// (shared memory) or 2 * buffer_floats(window-1+len) * channels floats.
 extern "C" int agc_launch(const float* x, const float* tail, const float* gain0,
                           const int* seen0, int channels, int len, int window,
                           float attack, float release, float level, int half,
                           int16_t* out, float* tail_out, float* gain_out,
-                          int* seen_out, float* scratch, int device, void* stream) {
+                          int* seen_out, float* gains, float* scratch, int device,
+                          void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (channels == 0) return 0;
-    const size_t smem = scratch != nullptr
-                            ? 0 : 2 * sizeof(float) * static_cast<size_t>(window - 1 + len);
-    if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(agc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (scratch != nullptr) {
+        agc_kernel<true><<<channels, kThreads, 0, st>>>(
+            x, tail, gain0, seen0, len, window, attack, release, level, gains,
+            tail_out, gain_out, seen_out, scratch);
+    } else {
+        const size_t smem = 2 * sizeof(float) * static_cast<size_t>(buffer_floats(window - 1 + len));
+        if (smem > 48 * 1024) {
+            err = cudaFuncSetAttribute(agc_kernel<false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+            if (err != cudaSuccess) return static_cast<int>(err);
+        }
+        agc_kernel<false><<<channels, kThreads, smem, st>>>(
+            x, tail, gain0, seen0, len, window, attack, release, level, gains,
+            tail_out, gain_out, seen_out, scratch);
     }
-    agc_kernel<<<channels, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, tail, gain0, seen0, channels, len, window, attack, release, level, half,
-        out, tail_out, gain_out, seen_out, scratch);
+    if (len > 0) {
+        const dim3 grid((len + kOutThreads - 1) / kOutThreads, channels);
+        agc_int16_kernel<<<grid, kOutThreads, 0, st>>>(x, tail, seen0, gains, channels,
+                                                       len, window, half, out);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The chain floor of agc_launch's shapes: gain_out only.
+extern "C" int agc_chain_probe_launch(const float* x, const float* gain0,
+                                      float* gain_out, int channels, int len,
+                                      float attack, float release, int device,
+                                      void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (channels == 0) return 0;
+    agc_chain_probe<<<channels, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, gain0, gain_out, len, attack, release);
     return static_cast<int>(cudaGetLastError());
 }

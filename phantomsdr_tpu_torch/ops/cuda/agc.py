@@ -2,16 +2,20 @@
 
 Replaces the gain ``lax.scan`` and the sliding window max of
 ``agc_process`` (phantomsdr_tpu/ops/agc.py) and ``float_to_int16``
-(phantomsdr_tpu/ops/channelizer.py).  Per channel one block loads the
-carried tail plus the step's stream, takes the exact window max by
-doubling in shared memory, runs the gain recursion (with the ``seen``
-clamp) and writes int16 straight into the [B, C, half] audio slice of
-the step's packed output buffer.
+(phantomsdr_tpu/ops/channelizer.py).  Per channel one block of 512
+threads loads the carried tail plus the step's stream, takes the exact
+window max in radix-8 passes in shared memory and computes the chain's
+input (``desired``); then one thread runs the gain recursion (with the
+``seen`` clamp) alone.  A second, fully parallel kernel writes int16
+straight into the [B, C, half] audio slice of the step's packed output
+buffer.
 
 Bound on the card: the gain recursion, a dependent chain of one step's
-samples per channel; the kernel precomputes every input of the chain
-in parallel so the serial thread only reads shared memory, and runs
-all channels at once.
+samples per channel.  ``chain_probe`` launches that loop alone over
+inputs held in registers; its time is the floor the kernel is measured
+against.  The chain has no branch (it starts where the warm-up ends),
+reads shared memory four samples at a time and runs with no other
+thread to reconverge with.
 
 ``agc_int16_plain`` is the same function in plain PyTorch; the wrapper
 takes it only for CPU tensors.
@@ -29,10 +33,15 @@ from .build import (
 )
 
 KERNEL = CudaKernel("agc", [P, P, P, P, I, I, I, F, F, F, I, P, P, P, P, P,
-                            I, P])
+                            P, I, P],
+                    probe_argtypes=[P, P, P, I, I, F, F, I, P])
 # shared memory one block may opt in to on sm_90 (bytes); above it the
 # kernel's two window-max buffers go to a device scratch buffer
 SMEM_LIMIT = 232448
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) & ~3
 
 
 def agc_int16_plain(state: AGCState, x: torch.Tensor, params: AGCParams,
@@ -67,9 +76,13 @@ def agc_int16(state: AGCState, x: torch.Tensor, params: AGCParams,
     tail = torch.empty_like(state.tail)
     gain = torch.empty_like(state.gain)
     seen = torch.empty_like(state.seen)
-    m = w - 1 + n
-    scratch = (torch.empty(2 * m * c, dtype=torch.float32, device=x.device)
-               if 2 * 4 * m > SMEM_LIMIT else None)
+    # two window-max buffers of pad4(W-1+L) + 8 floats each (csrc/agc.cu
+    # buffer_floats)
+    per_channel = 2 * (_pad4(w - 1 + n) + 8)
+    scratch = (torch.empty(per_channel * c, dtype=torch.float32,
+                           device=x.device)
+               if 4 * per_channel > SMEM_LIMIT else None)
+    gains = torch.empty((c, _pad4(n)), dtype=torch.float32, device=x.device)
     stream, dev = stream_and_device(x)
     KERNEL.launch(
         x.data_ptr(), state.tail.data_ptr(), state.gain.data_ptr(),
@@ -77,6 +90,26 @@ def agc_int16(state: AGCState, x: torch.Tensor, params: AGCParams,
         float(np.float32(params.attack_coeff)),
         float(np.float32(params.release_coeff)),
         float(np.float32(params.desired_level)), half, out16.data_ptr(),
-        tail.data_ptr(), gain.data_ptr(), seen.data_ptr(),
+        tail.data_ptr(), gain.data_ptr(), seen.data_ptr(), gains.data_ptr(),
         scratch.data_ptr() if scratch is not None else None, dev, stream)
     return AGCState(tail=tail, gain=gain, seen=seen)
+
+
+def chain_probe(x: torch.Tensor, gain0: torch.Tensor,
+                params: AGCParams) -> torch.Tensor:
+    """The kernel's gain chain alone, for timing: the same loop over L
+    samples per channel on |x[:, :4]| held in registers, no loads or
+    stores inside it.  Returns its final gain; not counted as a launch
+    of the kernel.  CUDA tensors only."""
+    require_cuda(x, "x", torch.float32, 2)
+    require_cuda(gain0, "gain", torch.float32, 1)
+    c, n = x.shape
+    if gain0.shape[0] != c:
+        raise ValueError(f"chain_probe: mismatched shapes {tuple(x.shape)} "
+                         f"{tuple(gain0.shape)}")
+    gain = torch.empty_like(gain0)
+    stream, dev = stream_and_device(x)
+    KERNEL.probe(x.data_ptr(), gain0.data_ptr(), gain.data_ptr(), c, n,
+                 float(np.float32(params.attack_coeff)),
+                 float(np.float32(params.release_coeff)), dev, stream)
+    return gain

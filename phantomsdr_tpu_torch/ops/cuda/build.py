@@ -54,13 +54,17 @@ class CudaKernel:
 
     ``argtypes`` lists the ctypes types of the launcher ``<name>_launch``
     (pointers and the stream as ``c_void_p``).  ``launches`` counts the
-    wrapper's calls that launched the kernel.
+    wrapper's calls that launched the kernel.  ``probe_argtypes``, where
+    given, binds ``<name>_chain_probe_launch``: the kernel's serial loop
+    alone, a measuring aid that ``probe`` launches without counting.
     """
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes: list,
+                 probe_argtypes: list | None = None):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.argtypes = argtypes
+        self.probe_argtypes = probe_argtypes
         self.launches = 0
         self._lib = None
 
@@ -94,19 +98,29 @@ class CudaKernel:
         fn = getattr(lib, f"{self.name}_launch")
         fn.argtypes = self.argtypes
         fn.restype = I
+        if self.probe_argtypes is not None:
+            probe = getattr(lib, f"{self.name}_chain_probe_launch")
+            probe.argtypes = self.probe_argtypes
+            probe.restype = I
         lib.kernel_error_string.argtypes = [I]
         lib.kernel_error_string.restype = ctypes.c_char_p
         return lib
 
     def launch(self, *args) -> None:
         """Call ``<name>_launch(*args)`` and raise on a CUDA error."""
+        self._call(f"{self.name}_launch", args)
+        self.launches += 1
+
+    def probe(self, *args) -> None:
+        """Call ``<name>_chain_probe_launch(*args)``; not counted."""
+        self._call(f"{self.name}_chain_probe_launch", args)
+
+    def _call(self, fn: str, args) -> None:
         lib = self.lib()
-        rc = getattr(lib, f"{self.name}_launch")(*args)
+        rc = getattr(lib, fn)(*args)
         if rc != 0:
             msg = lib.kernel_error_string(rc).decode()
-            raise RuntimeError(f"{self.name} kernel failed: CUDA error "
-                               f"{rc} ({msg})")
-        self.launches += 1
+            raise RuntimeError(f"{fn} failed: CUDA error {rc} ({msg})")
 
 
 def finish_builds(procs) -> None:

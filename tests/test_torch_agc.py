@@ -11,7 +11,7 @@ from phantomsdr_tpu.ops.channelizer import float_to_int16 as jf2i
 
 from phantomsdr_tpu_torch.ops import agc
 from phantomsdr_tpu_torch.ops.channelizer import float_to_int16
-from phantomsdr_tpu_torch.ops.cuda.agc import agc_int16
+from phantomsdr_tpu_torch.ops.cuda.agc import agc_int16, chain_probe
 
 
 def t(a):
@@ -127,3 +127,10 @@ def test_agc_int16_plain_writes_the_packed_layout():
     np.testing.assert_array_equal(out.numpy(), want16)
     for a_, b_ in zip(got_st, want_st):
         np.testing.assert_array_equal(a_.numpy(), b_.numpy())
+
+
+def test_agc_chain_probe_needs_a_card():
+    """The chain probe is a measuring aid with no plain version."""
+    with pytest.raises(ValueError, match="CUDA"):
+        chain_probe(torch.zeros((2, 8)), torch.zeros(2),
+                    agc.make_agc_params(2000))

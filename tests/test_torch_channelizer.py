@@ -11,6 +11,7 @@ from phantomsdr_tpu.ops import channelizer as jch
 from phantomsdr_tpu.pipeline import channels_from_numpy as jtable
 
 from phantomsdr_tpu_torch.ops import channelizer as ch
+from phantomsdr_tpu_torch.ops.cuda import pll
 from phantomsdr_tpu_torch.ops.cuda.pll import am_sync_detect_plain
 from phantomsdr_tpu_torch.pipeline import channels_from_numpy
 
@@ -197,3 +198,38 @@ def test_pll_phase_wrap_follows_jnp_mod():
         torch.zeros(c), torch.zeros(c))
     assert ((phase >= 0) & (phase < 2 * np.pi)).all()
     assert torch.isfinite(a).all()
+
+
+def test_pll_wrap_shortcut_equals_fmod():
+    """csrc/pll.cu wraps x = phase + freq in (-2pi, 4pi) by one subtract
+    or add of float32 2pi instead of fmodf + the sign fix; the two agree
+    bit for bit there (Sterbenz), and differ at both excluded ends."""
+    two_pi = np.float32(2 * np.pi)
+    rng = np.random.default_rng(5)
+    edges = np.array([
+        np.nextafter(-two_pi, np.float32(0)), -0.0, 0.0, -1e-30,
+        np.nextafter(two_pi, np.float32(0)), two_pi,
+        np.nextafter(2 * two_pi, np.float32(0))], dtype=np.float32)
+    x = np.concatenate([
+        rng.uniform(-2 * np.pi, 4 * np.pi, 200_000).astype(np.float32),
+        edges])
+    x = x[(x > -two_pi) & (x < 2 * two_pi)]
+    with np.errstate(invalid="ignore"):
+        ref = np.fmod(x, two_pi)
+    ref = np.where(ref < 0, ref + two_pi, ref)
+    short = np.where(x >= two_pi, x - two_pi, np.where(x < 0, x + two_pi, x))
+    assert ref.dtype == short.dtype == np.float32
+    assert np.array_equal(ref.view(np.int32), short.view(np.int32))
+    # the ends the shortcut leaves to fmodf: fmodf gives -0 and 0 there
+    for end in (-two_pi, 2 * two_pi):
+        r = np.fmod(end, two_pi)
+        r = r + two_pi if r < 0 else r
+        s = end - two_pi if end >= two_pi else (end + two_pi if end < 0 else end)
+        assert r.view(np.int32) != np.float32(s).view(np.int32)
+
+
+def test_pll_chain_probe_needs_a_card():
+    """The chain probe is a measuring aid with no plain version."""
+    c = torch.zeros((2, 8), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="CUDA"):
+        pll.chain_probe(c, torch.zeros(2), torch.zeros(2))

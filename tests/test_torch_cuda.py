@@ -49,48 +49,121 @@ def test_waterfall_kernel_matches_plain(dev, r, levels, real):
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3
 
 
-def test_pll_kernel_matches_plain(dev):
+@pytest.mark.parametrize("c,n,phase0,freq0", [
+    (7, 3000, "rand", 0.0),
+    # phase0 at 0 and just below 2*pi: the wrap's edges
+    (7, 3000, 0.0, 0.0), (7, 3000, 2 * np.pi - 1e-6, 0.0),
+    # freq0 7.0: phase + freq passes 2*pi, so the subtraction wraps;
+    # 13.0 >= 4*pi: the fmodf branch runs
+    (7, 3000, "rand", 7.0), (7, 3000, "rand", 13.0),
+    # more blocks than SMs; odd and short rows
+    (300, 1000, "rand", 0.0), (5, 3001, "rand", 0.0), (3, 100, "rand", 0.0),
+    # past one chain launch's 16384 samples: two launches carry the loop
+    (3, 17385, "rand", 0.0),
+])
+def test_pll_kernel_matches_plain(dev, c, n, phase0, freq0):
+    """(L = 3001, 17385: not a multiple of the chain's four-sample
+    groups.)"""
     g = torch.Generator(device=dev).manual_seed(3)
-    c, n = 7, 3000
     t = torch.arange(n, device=dev, dtype=torch.float32)
     car = torch.polar(torch.ones(c, n, device=dev),
                       0.003 * t + torch.rand(c, 1, device=dev, generator=g))
     base = (car * (1 + 0.5 * torch.sin(0.05 * t))).contiguous()
     carrier = (car + 0.05 * torch.randn(c, n, dtype=torch.complex64,
                                         device=dev, generator=g)).contiguous()
-    p0 = torch.rand(c, device=dev, generator=g) * 6
-    f0 = torch.zeros(c, device=dev)
+    p0 = (torch.rand(c, device=dev, generator=g) * 6 if phase0 == "rand"
+          else torch.full((c,), phase0, dtype=torch.float32, device=dev))
+    f0 = torch.full((c,), freq0, dtype=torch.float32, device=dev)
+    before = pll.KERNEL.launches
     got = pll.am_sync_detect(carrier, base, p0, f0)
     want = pll.am_sync_detect_plain(carrier, base, p0, f0)
+    assert pll.KERNEL.launches == before + 1
     assert float((got[0] - want[0]).abs().max()) <= 1e-5 * float(
         base.abs().max())
+    assert torch.allclose(got[1], want[1], atol=1e-5)
     assert torch.allclose(got[2], want[2], atol=1e-6)
 
 
-@pytest.mark.parametrize("sr,b,half", [(2000, 4, 22), (12000, 36, 180),
-                                       (192000, 2, 1000)])
-def test_agc_kernel_matches_plain(dev, sr, b, half):
+# warm-up points t0 = W-1-seen (clamped to [0, L]), where the kernel's
+# chain starts: at 0, on and off its four-sample groups (3, 511, 513,
+# 1023 leave a scalar head), at 512, 700 and at L (or as far as a
+# seen >= 0 allows)
+EDGES = (0, 3, 511, 512, 513, 700, 1023, None)
+
+
+@pytest.mark.parametrize("sr,b,half,seen", [
+    (2000, 4, 22, "mixed"), (12000, 36, 180, "mixed"),
+    (192000, 2, 1000, "mixed"),
+    (12000, 36, 180, "warm_up_edges"), (192000, 2, 1000, "warm_up_edges"),
+])
+def test_agc_kernel_matches_plain(dev, sr, b, half, seen):
     """(192000: the window is 38400 samples, past shared memory, so the
     kernel runs on its device scratch buffer.)"""
     g = torch.Generator(device=dev).manual_seed(sr)
     params = make_agc_params(sr)
     w = params.window
     c = 8
-    x = torch.randn(c, b * half, device=dev, generator=g) * 0.05
+    n = b * half
+    x = torch.randn(c, n, device=dev, generator=g) * 0.05
     x[:, ::41] *= 9
+    seen_v = ([0, 1, w // 3, w - 2, w - 1, w, w, 0] if seen == "mixed"
+              else [max(w - 1 - n, 0) if t0 is None else w - 1 - t0
+                    for t0 in EDGES])
     state = AGCState(
         tail=torch.randn(c, w - 1, device=dev, generator=g) * 0.05,
         gain=torch.rand(c, device=dev, generator=g) * 4,
-        seen=torch.tensor([0, 1, w // 3, w - 2, w - 1, w, w, 0],
-                          dtype=torch.int32, device=dev))
+        seen=torch.tensor(seen_v, dtype=torch.int32, device=dev))
     out_k = torch.empty(b, c, half, dtype=torch.int16, device=dev)
     out_p = torch.empty_like(out_k)
+    before = agc.KERNEL.launches
     st_k = agc.agc_int16(state, x, params, out_k)
     st_p = agc.agc_int16_plain(state, x, params, out_p)
+    assert agc.KERNEL.launches == before + 1
     assert int((out_k.int() - out_p.int()).abs().max()) <= 1
     assert torch.equal(st_k.tail, st_p.tail)
     assert torch.equal(st_k.seen, st_p.seen)
     assert torch.allclose(st_k.gain, st_p.gain, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1001, 6480])
+def test_pll_chain_probe_runs_the_kernels_loop(dev, n):
+    """On a carrier that repeats four samples (the probe keeps four in
+    registers; L % 4 <= 1, as its tail reuses the first), the probe and
+    the kernel end on the same phase and frequency bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    c = 5
+    four = torch.polar(torch.ones(c, 4, device=dev),
+                       torch.rand(c, 4, device=dev, generator=g) * 0.2)
+    carrier = four.repeat(1, -(-n // 4))[:, :n].contiguous()
+    p0 = torch.rand(c, device=dev, generator=g) * 6
+    f0 = torch.zeros(c, device=dev)
+    phase, freq = pll.chain_probe(carrier, p0, f0)
+    _, k_phase, k_freq = pll.am_sync_detect(carrier, carrier, p0, f0)
+    assert torch.equal(phase, k_phase) and torch.equal(freq, k_freq)
+    slow_phase, slow_freq = pll.chain_probe(carrier, p0, f0, reconverge=True)
+    assert torch.equal(slow_phase, phase) and torch.equal(slow_freq, freq)
+
+
+@pytest.mark.parametrize("n", [1001, 6480])
+def test_agc_chain_probe_runs_the_kernels_loop(dev, n):
+    """The probe's gain after L steps over desired = |x[:, :4]| repeated
+    (L % 4 <= 1, as its tail reuses the first) equals the kernel's
+    recursion done in numpy float32."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    params = make_agc_params(12000)
+    c = 8
+    x = torch.randn(c, n, device=dev, generator=g)
+    gain0 = torch.rand(c, device=dev, generator=g) * 4
+    got = agc.chain_probe(x, gain0, params).cpu().numpy()
+    d = np.abs(x[:, :4].cpu().numpy())
+    att = np.float32(params.attack_coeff)
+    rel = np.float32(params.release_coeff)
+    gain = gain0.cpu().numpy()
+    for t in range(n):
+        dt = d[:, t % 4 if t < n - n % 4 else 0]
+        gain = np.where(dt < gain, gain - att * (gain - dt),
+                        gain + rel * (dt - gain)).astype(np.float32)
+    assert np.array_equal(got, gain)
 
 
 def test_kernel_wrapper_rejects_wrong_index_dtype(dev):
