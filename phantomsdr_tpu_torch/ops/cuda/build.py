@@ -148,8 +148,10 @@ def build_all(kernels) -> None:
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
                  ndim: int) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of the given dtype
-    and rank (what every launcher takes)."""
-    if t.device.type != "cuda":
+    and rank (what every launcher takes).  (``is_cuda`` rather than
+    ``device``: it runs on every launch, and building a device object
+    costs more than the rest of the checks together.)"""
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -161,16 +163,17 @@ def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 
 def stream_and_device(t: torch.Tensor) -> tuple[int, int]:
-    """(current stream handle, device index) for launching on ``t``."""
-    dev = t.device.index if t.device.index is not None else 0
+    """(current stream handle, device index) for launching on the CUDA
+    tensor ``t``."""
+    dev = t.get_device()
     return torch.cuda.current_stream(dev).cuda_stream, dev
 
 
 def check_host_or_cuda(t: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor (plain version), False for CUDA (kernel);
     raise for any other device."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return False
+    if t.is_cpu:
+        return True
     raise ValueError(f"{name}: unsupported device {t.device}")

@@ -32,7 +32,7 @@ from .build import (
 )
 
 KERNEL = CudaKernel("pll", [P, P, P, P, P, P, P, I, I, F, F, F, I, P],
-                    probe_argtypes=[P, P, P, P, P, I, I, F, F, F, I, I, P])
+                    probe_argtypes=[P, P, P, P, P, I, I, F, F, F, I, P])
 
 # PLL loop gains for carrier sync, after liquid's
 # nco_crcf_pll_set_bandwidth(0.001) (src/signal.cpp:61):
@@ -91,7 +91,7 @@ def am_sync_detect(carrier: torch.Tensor, baseband: torch.Tensor,
         raise ValueError("am_sync_detect: mismatched shapes "
                          f"{tuple(carrier.shape)} {tuple(baseband.shape)} "
                          f"{tuple(phase0.shape)} {tuple(freq0.shape)}")
-    out = torch.empty((c, n), dtype=torch.float32, device=carrier.device)
+    out = carrier.new_empty((c, n), dtype=torch.float32)
     phase = torch.empty_like(phase0)
     freq = torch.empty_like(freq0)
     stream, dev = stream_and_device(carrier)
@@ -102,14 +102,11 @@ def am_sync_detect(carrier: torch.Tensor, baseband: torch.Tensor,
 
 
 def chain_probe(carrier: torch.Tensor, phase0: torch.Tensor,
-                freq0: torch.Tensor, reconverge: bool = False
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                freq0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's chain alone, for timing: the same loop over L
     samples per channel on four carrier samples held in registers, no
-    loads or stores inside it.  ``reconverge`` runs it inside a warp
-    whose other lanes wait for it (what the kernel avoids).  Returns its
-    (phase, freq); not counted as a launch of the kernel.  CUDA tensors
-    only."""
+    loads or stores inside it.  Returns its (phase, freq); not counted as
+    a launch of the kernel.  CUDA tensors only."""
     require_cuda(carrier, "carrier", torch.complex64, 2)
     require_cuda(phase0, "phase0", torch.float32, 1)
     require_cuda(freq0, "freq0", torch.float32, 1)
@@ -122,6 +119,6 @@ def chain_probe(carrier: torch.Tensor, phase0: torch.Tensor,
     freq = torch.empty_like(freq0)
     stream, dev = stream_and_device(carrier)
     KERNEL.probe(carrier.data_ptr(), phase0.data_ptr(), freq0.data_ptr(),
-                 phase.data_ptr(), freq.data_ptr(), c, n, *_GAINS,
-                 int(reconverge), dev, stream)
+                 phase.data_ptr(), freq.data_ptr(), c, n, *_GAINS, dev,
+                 stream)
     return phase, freq

@@ -134,3 +134,43 @@ def test_agc_chain_probe_needs_a_card():
     with pytest.raises(ValueError, match="CUDA"):
         chain_probe(torch.zeros((2, 8)), torch.zeros(2),
                     agc.make_agc_params(2000))
+
+
+@pytest.mark.parametrize("w", [20, 128, 129, 200, 256, 257, 400, 2400])
+def test_agc_window_max_decomposition_is_exact(w):
+    """csrc/agc.cu's window max: per aligned 128-sample block the prefix
+    max P and suffix max Q of |y|, and a sparse table of block maxes;
+    peak[t] = max(Q[t], P[t+W-1], two table entries over the whole
+    blocks between) equals the sliding max exactly."""
+    blk = 128
+    rng = np.random.default_rng(w)
+    length = 3 * w + 17
+    y = np.abs(rng.standard_normal(w - 1 + length)).astype(np.float32)
+    m = len(y)
+    nb = -(-m // blk)
+    blocks = np.zeros(nb * blk, np.float32)
+    blocks[:m] = y
+    blocks = blocks.reshape(nb, blk)
+    pre = np.maximum.accumulate(blocks, axis=1).reshape(-1)
+    suf = np.maximum.accumulate(blocks[:, ::-1], axis=1)[:, ::-1].reshape(-1)
+    levels = max((w + blk - 2) // blk - 1, 1).bit_length()
+    table = [blocks.max(axis=1)]
+    for k in range(1, levels):
+        h = 1 << (k - 1)
+        table.append(np.maximum(table[-1][:-h], table[-1][h:]))
+    peaks = np.empty(length, np.float32)
+    for t in range(length):
+        last = t + w - 1
+        b0, b1 = t // blk, last // blk
+        if b0 == b1:
+            peaks[t] = y[t:last + 1].max()
+            continue
+        pk = max(suf[t], pre[last])
+        n = b1 - b0 - 1
+        if n > 0:
+            lv = n.bit_length() - 1
+            assert lv < levels
+            pk = max(pk, table[lv][b0 + 1], table[lv][b1 - (1 << lv)])
+        peaks[t] = pk
+    want = agc.sliding_max_abs(torch.from_numpy(y), w, length).numpy()
+    np.testing.assert_array_equal(peaks, want)

@@ -85,16 +85,22 @@ def test_pll_kernel_matches_plain(dev, c, n, phase0, freq0):
 
 
 # warm-up points t0 = W-1-seen (clamped to [0, L]), where the kernel's
-# chain starts: at 0, on and off its four-sample groups (3, 511, 513,
-# 1023 leave a scalar head), at 512, 700 and at L (or as far as a
-# seen >= 0 allows)
-EDGES = (0, 3, 511, 512, 513, 700, 1023, None)
+# chain starts: at 0, inside its first 1024-sample chunk on and off its
+# four-sample groups (3, 511, 1023 leave a scalar head), at the start of
+# the second chunk (1024), past it (1025), two samples before the end of
+# an L = 1539 row (1537) and at L (or as far as a seen >= 0 allows)
+EDGES = (0, 3, 511, 1023, 1024, 1025, 1537, None)
 
 
 @pytest.mark.parametrize("sr,b,half,seen", [
     (2000, 4, 22, "mixed"), (12000, 36, 180, "mixed"),
     (192000, 2, 1000, "mixed"),
     (12000, 36, 180, "warm_up_edges"), (192000, 2, 1000, "warm_up_edges"),
+    # L = 1539, not a multiple of four or of the chunk
+    (12000, 9, 171, "warm_up_edges"),
+    # windows of 20 (inside one 128-sample block of the window max) and
+    # 200 samples (two or three blocks)
+    (100, 5, 13, "mixed"), (1000, 3, 37, "mixed"),
 ])
 def test_agc_kernel_matches_plain(dev, sr, b, half, seen):
     """(192000: the window is 38400 samples, past shared memory, so the
@@ -140,8 +146,6 @@ def test_pll_chain_probe_runs_the_kernels_loop(dev, n):
     phase, freq = pll.chain_probe(carrier, p0, f0)
     _, k_phase, k_freq = pll.am_sync_detect(carrier, carrier, p0, f0)
     assert torch.equal(phase, k_phase) and torch.equal(freq, k_freq)
-    slow_phase, slow_freq = pll.chain_probe(carrier, p0, f0, reconverge=True)
-    assert torch.equal(slow_phase, phase) and torch.equal(slow_freq, freq)
 
 
 @pytest.mark.parametrize("n", [1001, 6480])
