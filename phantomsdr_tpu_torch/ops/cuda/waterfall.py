@@ -9,15 +9,21 @@ spectrum) and writes the flat [D, P] int8 pyramid that
 ``waterfall_pyramid`` + ``pyramid_flat`` give.
 
 Bound on the card: bytes -- 8 read per bin of each due row, about 2
-written.  The design keeps the float power of every level in shared
-memory (one block per tile of 2048 bins holds all 12 levels a tile can
-have), so only the int8 rows reach device memory.
+written.  One block per 2048 display bins of a row: each lane loads its
+8 bins with 16-byte loads and builds their levels in registers, warp
+shuffles and one shared-memory exchange, so only the int8 rows reach
+device memory, in packed stores.  The log2 of the quantization comes
+from lg2.approx, with the accurate log2f where the dB value lies near an
+integer, so the result equals the plain version's (csrc/waterfall.cu
+says how and why).
 
 ``waterfall_rows_plain`` is the same function in plain PyTorch; the
 wrapper takes it only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -33,11 +39,31 @@ from .build import (
 
 KERNEL = CudaKernel("waterfall", [P, I64, P, I, I, I, I, I, F, F, P, I64, P,
                                   I, P])
-MAX_TILE_LOG2 = 11  # csrc/waterfall.cu kMaxTileLog2
+CHUNK_LOG2 = 11  # csrc/waterfall.cu kChunkLog2: levels 0-11 in one block
+_L2DB = float(np.float32(_LOG2_TO_DB))
+_DPO = float(np.float32(_DB_PER_OCTAVE))
 
 
 def pyramid_width(fft_result_size: int, levels: int) -> int:
     return sum(fft_result_size >> i for i in range(levels))
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(fft_result_size: int, levels: int,
+                columns: int) -> tuple[int, int]:
+    """(P, scratch floats per due row) of a launch over rows of
+    ``columns`` bins; raises ValueError for a shape the kernel does not
+    take.  Scratch holds the per-chunk sums of a pyramid deeper than one
+    chunk (levels > CHUNK_LOG2 + 1), two buffers of R >> CHUNK_LOG2."""
+    r = fft_result_size
+    if r <= 0 or r & (r - 1) or columns < r:
+        raise ValueError(f"fft_result_size {r} must be a power of two "
+                         f"<= {columns}")
+    if not 1 <= levels <= r.bit_length():
+        raise ValueError(f"levels {levels} out of range for width {r}")
+    last = min(levels - 1, CHUNK_LOG2)
+    return (pyramid_width(r, levels),
+            2 * (r >> last) if last < levels - 1 else 0)
 
 
 def waterfall_rows_plain(spec: torch.Tensor, rows: torch.Tensor, *,
@@ -65,23 +91,14 @@ def waterfall_rows(spec: torch.Tensor, rows: torch.Tensor, *,
     require_cuda(spec, "spec", torch.complex64, 2)
     require_cuda(rows, "rows", torch.int32, 1)
     r = fft_result_size
-    if r <= 0 or r & (r - 1) or spec.shape[1] < r:
-        raise ValueError(f"fft_result_size {r} must be a power of two "
-                         f"<= {spec.shape[1]}")
-    if not 1 <= levels <= r.bit_length():
-        raise ValueError(f"levels {levels} out of range for width {r}")
+    p, scratch_per_row = launch_plan(r, levels, spec.shape[1])
     d = rows.shape[0]
-    out = torch.empty((d, pyramid_width(r, levels)), dtype=torch.int8,
-                      device=spec.device)
-    last = min(levels - 1, MAX_TILE_LOG2, r.bit_length() - 1)
-    scratch = (torch.empty(2 * d * (r >> last), dtype=torch.float32,
-                           device=spec.device)
-               if last < levels - 1 else None)
+    out = torch.empty((d, p), dtype=torch.int8, device=spec.device)
+    scratch = (torch.empty(d * scratch_per_row, dtype=torch.float32,
+                           device=spec.device) if scratch_per_row else None)
     stream, dev = stream_and_device(spec)
     KERNEL.launch(
         spec.data_ptr(), spec.stride(0), rows.data_ptr(), d, r,
-        base_idx % r, levels, size_log2,
-        float(np.float32(_LOG2_TO_DB)), float(np.float32(_DB_PER_OCTAVE)),
-        out.data_ptr(), out.stride(0),
+        base_idx % r, levels, size_log2, _L2DB, _DPO, out.data_ptr(), p,
         scratch.data_ptr() if scratch is not None else None, dev, stream)
     return out

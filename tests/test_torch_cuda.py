@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card,
-at shapes the main path does not reach (a pyramid deeper than one tile,
-rows narrower than a tile, real input, an AGC window too large for
-shared memory).  They need a CUDA device and skip elsewhere; run them
+at shapes the main path does not reach (a pyramid deeper than one
+chunk, rows narrower than a chunk, other rolls, misaligned input and
+output rows, real input, an AGC window too large for shared memory).  They need a CUDA device and skip elsewhere; run them
 on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -27,26 +27,51 @@ def dev():
     return "cuda"
 
 
-@pytest.mark.parametrize("r,levels,real", [
-    (1 << 12, 3, False), (1 << 12, 13, False), (1 << 14, 5, False),
-    (1 << 9, 10, False), (1 << 13, 14, True), (1 << 20, 11, False),
+ROWS = (4, 1, 1, 0)
+
+
+@pytest.mark.parametrize("r,levels,real,base_idx,extra,rows", [
+    (1 << 12, 3, False, None, 0, ROWS), (1 << 12, 13, False, None, 0, ROWS),
+    (1 << 14, 5, False, None, 0, ROWS), (1 << 9, 10, False, None, 0, ROWS),
+    (1 << 13, 14, True, None, 0, ROWS), (1 << 20, 11, False, None, 0, ROWS),
+    # an arbitrary odd roll, and one past R: the wrap falls inside a
+    # lane's 8 bins
+    (1 << 14, 12, False, 12345, 0, ROWS),
+    (1 << 12, 11, False, 3 * (1 << 12) + 5, 0, ROWS),
+    # rows wider than R, by an odd count: rows alternate between 8- and
+    # 16-byte alignment
+    (1 << 12, 8, False, None, 37, ROWS),
+    # real rows of R + 1 bins (odd row stride) through the chunk path
+    (1 << 12, 12, True, None, 0, ROWS),
+    # P odd (output rows misaligned) with every level in one chunk;
+    # pyramids that end inside the block stage and after level 1
+    (1 << 11, 12, False, None, 0, ROWS), (1 << 12, 10, False, None, 0, ROWS),
+    (1 << 12, 2, False, None, 0, ROWS),
+    # deeper than one chunk: a second pass over 32 per-chunk sums a row
+    (1 << 16, 17, False, None, 0, ROWS),
+    # one row due three times
+    (1 << 12, 12, False, None, 0, (2, 2, 2)),
 ])
-def test_waterfall_kernel_matches_plain(dev, r, levels, real):
+def test_waterfall_kernel_matches_plain(dev, r, levels, real, base_idx, extra,
+                                        rows):
+    """The kernel keeps the plain version's arithmetic and pair order, so
+    the two are equal byte for byte."""
     g = torch.Generator(device=dev).manual_seed(r + levels)
-    width = r + 1 if real else r
+    width = r + 1 if real else r + extra
     spec = (torch.randn(5, width, dtype=torch.complex64, device=dev,
                         generator=g)
             * 10 ** (torch.rand(5, width, device=dev, generator=g) * 6 - 6))
     spec[1, :9] = 0
-    rows = torch.tensor([4, 1, 1, 0], dtype=torch.int32, device=dev)
-    kw = dict(fft_result_size=r, base_idx=0 if real else r // 2 + 1,
-              levels=levels, size_log2=int(np.log2(r)))
+    rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+    if base_idx is None:
+        base_idx = 0 if real else r // 2 + 1
+    kw = dict(fft_result_size=r, base_idx=base_idx, levels=levels,
+              size_log2=int(np.log2(r)))
     before = waterfall.KERNEL.launches
     got = waterfall.waterfall_rows(spec, rows, **kw)
     want = waterfall.waterfall_rows_plain(spec, rows, **kw)
     assert waterfall.KERNEL.launches == before + 1
-    d = (got.int() - want.int()).abs()
-    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("c,n,phase0,freq0", [
