@@ -18,10 +18,17 @@ Phases, one JSON line each (any failure exits non-zero):
              loop alone, timed by the kernel's probe entry point).
              ms is one wrapper call alone between CUDA events (the
              host's issue included); device_ms is per call over 10
-             calls back to back; device_us_by_kernel is each CUDA
-             kernel's time by torch.profiler
+             calls back to back; kernel_ms is the device work of one
+             call alone, with the host's launch work hidden behind a
+             device spin; device_us_by_kernel is each CUDA kernel's time a
+             call by torch.profiler, device_us_per_launch the mean of
+             one recorded launch and profiler_records how many launches
+             it recorded (it loses some of the port's)
+             K-PILOT, K-DEEMPH and K-AGC's float mode at the shapes of
+             the wideband WBFM step (128 channels x 40,272 samples)
 4. small     the whole step on the card against the whole step on the
-             CPU (plain versions) at a small config
+             CPU (plain versions) at a small config; small_wbfm the same
+             with stereo + RDS + de-emphasis + Opus decimation
 5. main      HopPipeline.step at full width: 10 'views' steps and 2
              'off' steps over a synthetic capture with one tone per
              demodulation mode; the tones must come out at their Hz,
@@ -31,6 +38,15 @@ Phases, one JSON line each (any failure exits non-zero):
 7. server    the CLI's build() served on localhost; websocket clients
              on /audio and /waterfall must receive packets (skipped
              only when aiohttp is not installed)
+8. wbfm      the wideband profile (20 MSPS, 2^20 FFT, 192 kHz audio, 128
+             WBFM channels over four synthetic stereo stations) with
+             stereo, de-emphasis and Opus decimation: 10 steps; each ear
+             must carry its tone with > 20 dB rejection of the other
+             through the 48 kHz stream; step time, a profiler split of
+             the stages, a short DSPDriver run
+9. rds       the soak profile (1.536 MSPS, FFT 131072, stereo + RDS +
+             de-emphasis, 128 channels) over an FM capture of an RDS
+             MPX: the host decoder must assemble the exact PI and PS
 
 then the kernel table, the card's nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -62,6 +78,29 @@ BENCH_CFG = {
         "driver": {"format": "u8"},
     },
     "tpu": {"hop_batch": 36, "max_channels": 128},
+}
+# configs/config.example.wideband.toml (the reference's own config.toml:
+# 20 MSPS, 2^20-point FFT, 192 kHz WBFM audio) with WBFM stereo,
+# de-emphasis and Opus (device decimation /4 to 48 kHz)
+WIDEBAND_CFG = {
+    "input": {
+        "sps": 20_000_000, "frequency": 98_000_000, "fft_size": 1 << 20,
+        "signal": "iq", "audio_sps": 192000, "waterfall_size": 2048,
+        "stereo": True, "deemphasis": 75, "audio_compression": "opus",
+        "driver": {"format": "u8"},
+    },
+    "tpu": {"hop_batch": 8, "max_channels": 128},
+}
+# tools/verify/captures.py's soak profile: 1.536 MSPS, FFT 131072,
+# 192 kHz audio, stereo + RDS + de-emphasis 75 us
+SOAK_CFG = {
+    "input": {
+        "sps": 1_536_000, "frequency": 98_000_000, "fft_size": 131072,
+        "signal": "iq", "audio_sps": 192000, "waterfall_size": 1024,
+        "stereo": True, "rds": True, "deemphasis": 75,
+        "driver": {"format": "s16"},
+    },
+    "tpu": {"hop_batch": 4, "max_channels": 128},
 }
 
 
@@ -109,25 +148,98 @@ def device_ms(fn, calls: int = 10, rounds: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_us_by_kernel(fn, calls: int = 5) -> dict:
+def device_us_by_kernel(fn, calls: int = 5, records: dict | None = None,
+                        per_launch: dict | None = None) -> dict:
     """Device microseconds per fn() call of each CUDA kernel it launches
-    (torch.profiler), by the kernel's function name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    (torch.profiler), by the kernel's function name: the kernel's total
+    over ``calls`` calls, divided by ``calls``.
 
+    The profiler does not keep every record of the port's own
+    (ctypes-launched) kernels when they run back to back: on the card it
+    kept 1-5 of 5, with or without the two warm-up calls run here before
+    the recorded ones.  So ``records``, where given, receives the number
+    of launches of each kernel it recorded, and ``per_launch`` the mean
+    device microseconds of one recorded launch -- the figure to use
+    where records are missing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    warm = 2
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warm, active=calls,
+                                   repeat=1)) as prof:
+        for _ in range(warm + calls):
             fn()
-        torch.cuda.synchronize()
-    out = {}
+            torch.cuda.synchronize()
+            prof.step()
+    out, total, count = {}, {}, {}
     for ev in prof.key_averages():
         if ev.device_time_total > 0:
             name = ev.key.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].split("<")[0]
-            out[name] = out.get(name, 0.0) + ev.device_time_total / calls
+            total[name] = total.get(name, 0.0) + ev.device_time_total
+            count[name] = count.get(name, 0) + ev.count
+    for name in total:
+        out[name] = total[name] / calls
+        if records is not None:
+            records[name] = count[name]
+        if per_launch is not None:
+            per_launch[name] = total[name] / count[name]
     return out
+
+
+def profiled(fn, calls: int = 5) -> dict:
+    """``device_us_by_kernel`` of fn and, beside it, the launches of
+    each kernel the profiler recorded in those calls and the mean device
+    microseconds of one recorded launch."""
+    rec, mean = {}, {}
+    us = device_us_by_kernel(fn, calls, rec, mean)
+    return {"device_us_by_kernel": us, "device_us_per_launch": mean,
+            "profiler_records": {"calls": calls, **rec}}
+
+
+def flush_l2() -> None:
+    """Evict the card's 50 MB L2 cache (write 128 MB)."""
+    import torch
+
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    _FLUSH.zero_()
+
+
+_FLUSH = None
+
+
+def kernel_ms(fn, reps: int = 10, cold: bool = False) -> float:
+    """Median milliseconds of the device work of one fn() call: CUDA
+    events recorded right around the call while the device is kept busy
+    (``torch.cuda._sleep``) until the call's launches are queued, so
+    that neither the host's launch work nor an idle gap counts.  With ``cold``
+    the L2 cache is flushed before each call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        if cold:
+            flush_l2()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# about 1 ms of device spin at the H100's clock: far longer than the
+# host's work to launch one wrapper call
+SPIN_CYCLES = 2_000_000
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -235,6 +347,156 @@ def max_run_centroid(row: np.ndarray) -> float:
     return (i + j) / 2
 
 
+# tests/test_rds.py's RDS bitstream and MPX (that file imports JAX),
+# with the port's block encoder
+RDS_PI, RDS_PS, RDS_RT = 0x54A7, "PHANTOM!", "TPU SPECTRUM SERVER RADIOTEXT"
+
+
+def rds_group_bits() -> list[int]:
+    """Clean RDS bitstream: 0A (PS) + 2A (RadioText) groups."""
+    from phantomsdr_tpu_torch.runtime.rds import (
+        OFFSET_A, OFFSET_B, OFFSET_C, OFFSET_D, encode_block,
+    )
+
+    blocks = []
+    for seg in range(4):
+        b = (0 << 12) | (9 << 5) | seg
+        d = (ord(RDS_PS[2 * seg]) << 8) | ord(RDS_PS[2 * seg + 1])
+        blocks += [(RDS_PI, OFFSET_A), (b, OFFSET_B), (0xE0E0, OFFSET_C),
+                   (d, OFFSET_D)]
+    text = (RDS_RT + "\r").ljust(64)[:64]
+    for seg in range(16):
+        b = (2 << 12) | (9 << 5) | seg
+        c = (ord(text[4 * seg]) << 8) | ord(text[4 * seg + 1])
+        d = (ord(text[4 * seg + 2]) << 8) | ord(text[4 * seg + 3])
+        blocks += [(RDS_PI, OFFSET_A), (b, OFFSET_B), (c, OFFSET_C),
+                   (d, OFFSET_D)]
+    bits = []
+    for data, off in blocks:
+        w = encode_block(data, off)
+        bits += [(w >> i) & 1 for i in range(25, -1, -1)]
+    return bits
+
+
+def rds_mpx(n: int, fs: float, rds_amp: float = 0.06) -> np.ndarray:
+    """FM MPX at fs: mono + 9% pilot + stereo DSB (800 Hz left only,
+    1300 Hz right only) + the differentially encoded biphase RDS stream
+    at 1187.5 bps on 57 kHz, float32."""
+    tx = np.bitwise_xor.accumulate(np.array(rds_group_bits() * 40))
+    pos = np.arange(n) * 1187.5 / fs
+    k = pos.astype(np.int64)
+    d = np.where(tx[k % tx.size] == 1, 1.0, -1.0) * np.sin(
+        2 * np.pi * (pos - k))
+    th = 2 * np.pi * 19000.0 * np.arange(n) / fs
+    t = np.arange(n) / fs
+    left, right = np.sin(2 * np.pi * 800.0 * t), np.sin(2 * np.pi * 1300.0 * t)
+    x = (0.4 * (left + right) / 2 + 0.09 * np.cos(th)
+         + 0.4 * (left - right) / 2 * np.cos(2 * th)
+         + rds_amp * d * np.cos(3 * th))
+    return x.astype(np.float32)
+
+
+def fm_s16(mpx: np.ndarray, up: int, sps: float, device: str, seed: int):
+    """The MPX upsampled by `up` (staircase) and FM-modulated at 75 kHz
+    deviation on the centre of the band, plus noise: s16 interleaved IQ
+    on ``device``."""
+    import torch
+
+    m = torch.from_numpy(mpx).to(device, torch.float64).repeat_interleave(up)
+    ph = 2 * math.pi * 75000.0 * torch.cumsum(m, 0) / sps
+    gen = torch.Generator(device=device).manual_seed(seed)
+    iq = 0.5 * torch.stack([torch.cos(ph), torch.sin(ph)], -1)
+    iq = iq + 0.005 * torch.randn(iq.shape, dtype=torch.float64,
+                                  device=device, generator=gen)
+    return torch.round(iq * 32000).to(torch.int16).reshape(-1)
+
+
+class Stations:
+    """Four WBFM stations (75 kHz deviation) across the wideband
+    profile's 20 MHz, each carrying the stereo MPX of
+    tests/test_stereo.py (19 kHz pilot, 800 Hz left only, 1300 Hz right
+    only), plus noise; the FM phase is the MPX's exact integral."""
+
+    OFFSETS = (-0.315, -0.105, 0.135, 0.355)   # of sps: -6.3 .. 7.1 MHz
+
+    def __init__(self, cfg):
+        n, self.fs = cfg.fft_size, cfg.sps
+        df = self.fs / n
+        self.bins = [int(round(f * self.fs / df)) for f in self.OFFSETS]
+        self.freqs = [b * df for b in self.bins]
+        self.m = [b + n // 2 - 1 for b in self.bins]   # display bins
+        self.off96 = 96000 * cfg.fft_result_size // cfg.sps
+
+    @staticmethod
+    def mpx_integral(t):
+        """Integral from 0 to t of 0.225 (L + R) + 0.09 cos(th) + 0.225
+        (L - R) cos(2 th), L = sin(wl t), R = sin(wr t), th = wp t."""
+        import torch
+
+        wl, wr, wp = (2 * math.pi * f for f in (800.0, 1300.0, 19000.0))
+
+        def s(w):      # integral of sin(w t)
+            return (1 - torch.cos(w * t)) / w
+
+        return (0.225 * (s(wl) + s(wr)) + 0.09 * torch.sin(wp * t) / wp
+                + 0.1125 * (s(wl + 2 * wp) + s(wl - 2 * wp)
+                            - s(wr + 2 * wp) - s(wr - 2 * wp)))
+
+    def iq(self, start: int, count: int, gen):
+        """Samples [start, start+count) as u8 interleaved IQ on the card."""
+        import torch
+
+        t = torch.arange(start, start + count, dtype=torch.float64,
+                         device="cuda") / self.fs
+        fmph = 2 * math.pi * 75000.0 * self.mpx_integral(t)
+        x = torch.zeros((count, 2), dtype=torch.float64, device="cuda")
+        for k, f in enumerate(self.freqs):
+            ph = torch.remainder(t * f, 1.0) * 2 * math.pi + fmph + k
+            x += 0.2 * torch.stack([torch.cos(ph), torch.sin(ph)], -1)
+        x += torch.randn((count, 2), dtype=torch.float64, device="cuda",
+                         generator=gen) * 0.01
+        return torch.clamp(torch.round(x * 128 + 128), 0, 255).to(
+            torch.uint8).reshape(-1)
+
+
+def tone_amp(x: np.ndarray, f: float, rate: float) -> float:
+    n = x.size
+    return float(np.abs(np.sum(x * np.exp(-2j * np.pi * f * np.arange(n)
+                                          / rate))) * 2 / n)
+
+
+def split_device_us(fn, calls: int = 2) -> dict:
+    """torch.profiler's device microseconds per fn() call, summed by the
+    WBFM stages' kernels: FFTs (cuFFT), FIRs (cuDNN conv1d), K-PILOT,
+    K-DEEMPH, K-AGC, K-PLL, K-WF and everything else."""
+    groups = {"fft": 0.0, "fir_conv1d": 0.0, "K-PILOT": 0.0,
+              "K-DEEMPH": 0.0, "K-AGC": 0.0, "K-PLL": 0.0, "K-WF": 0.0,
+              "other": 0.0}
+    by_kernel = device_us_by_kernel(fn, calls)
+    for name, us in by_kernel.items():
+        low = name.lower()
+        if "fft" in low:
+            g = "fft"
+        elif "pilot" in low:
+            g = "K-PILOT"
+        elif "deemph" in low:
+            g = "K-DEEMPH"
+        elif low.startswith("agc"):
+            g = "K-AGC"
+        elif low.startswith("pll"):
+            g = "K-PLL"
+        elif "pyramid" in low:
+            g = "K-WF"
+        elif any(k in low for k in ("conv", "cudnn", "xmma", "gemm")):
+            g = "fir_conv1d"
+        else:
+            g = "other"
+        groups[g] += us
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"by_stage_us": groups, "total_us": sum(groups.values()),
+            "top_kernels_us": dict(top)}
+
+
 # ------------------------------------------------------------------ phases
 
 def phase_card():
@@ -294,7 +556,7 @@ def phase_kernels(cfg, raw0):
     p = got.shape[1]
     b_ms, b_by = bound_ms(8 * d * r + d * p, d * r * 3 + d * p * 6)
     rows_out.append(dict(
-        name="K-WF waterfall pyramid", route="cuda",
+        name="K-WF waterfall pyramid", route="cuda", kernel=waterfall.KERNEL,
         source="phantomsdr_tpu_torch/csrc/waterfall.cu",
         replaces="phantomsdr_tpu/ops/pallas/waterfall.py:96",
         shape=f"[{cfg.hop_batch}, {r}] c64 spectra, {d} due rows -> "
@@ -302,9 +564,11 @@ def phase_kernels(cfg, raw0):
         max_abs_err=wf_err, frac_differing=wf_frac,
         tolerance="equal (the plain version's arithmetic and pair order)",
         ms=time_ms(lambda: waterfall.waterfall_rows(spec, rows, **kw), 20),
+        kernel_ms=kernel_ms(lambda: waterfall.waterfall_rows(spec, rows,
+                                                             **kw)),
         device_ms=device_ms(lambda: waterfall.waterfall_rows(spec, rows,
                                                              **kw)),
-        device_us_by_kernel=device_us_by_kernel(
+        **profiled(
             lambda: waterfall.waterfall_rows(spec, rows, **kw)),
         plain_ms=time_ms(
             lambda: waterfall.waterfall_rows_plain(spec, rows, **kw), 5),
@@ -354,7 +618,7 @@ def phase_kernels(cfg, raw0):
         pll.am_sync_detect(carrier, baseband, phase0, freq0)
 
     rows_out.append(dict(
-        name="K-PLL AM carrier PLL", route="cuda",
+        name="K-PLL AM carrier PLL", route="cuda", kernel=pll.KERNEL,
         source="phantomsdr_tpu_torch/csrc/pll.cu",
         replaces="phantomsdr_tpu/ops/channelizer.py:155 (lax.scan via "
                  "ops/unroll.py:60)",
@@ -362,12 +626,13 @@ def phase_kernels(cfg, raw0):
         max_abs_err=pll_err, chained_calls=calls,
         tolerance=f"|diff| <= {PLL_ATOL} * max|baseband|, carries equal",
         ms=time_ms(run_pll, 10),
+        kernel_ms=kernel_ms(run_pll),
         device_ms=device_ms(run_pll),
         plain_ms=time_ms(lambda: pll.am_sync_detect_plain(
             carrier, baseband, phase0, freq0), 1, warmup=0),
         chain_floor_ms=device_ms(lambda: pll.chain_probe(carrier, phase0,
                                                          freq0)),
-        device_us_by_kernel=device_us_by_kernel(run_pll),
+        **profiled(run_pll),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         chain_note=f"{n} dependent loop steps per channel"))
 
@@ -400,32 +665,237 @@ def phase_kernels(cfg, raw0):
                           + 4 * (w - 1) + 8),
                           c * (m * math.log2(w) + n * AGC_OPS_PER_SAMPLE))
     rows_out.append(dict(
-        name="K-AGC look-ahead AGC + int16", route="cuda",
+        name="K-AGC look-ahead AGC + int16", route="cuda", kernel=agc.KERNEL,
         source="phantomsdr_tpu_torch/csrc/agc.cu",
         replaces="phantomsdr_tpu/ops/agc.py:193 (lax.scan) + "
                  "agc.py:108 (_sliding_max_abs)",
         shape=f"[{c}, {n}] f32, window {w} -> [{b}, {c}, {half}] int16",
         max_abs_err=agc_err, tolerance="int16 |diff| <= 1",
         ms=time_ms(lambda: agc.agc_int16(state, x, params, out_k), 20),
+        kernel_ms=kernel_ms(lambda: agc.agc_int16(state, x, params, out_k)),
         device_ms=device_ms(lambda: agc.agc_int16(state, x, params, out_k)),
         plain_ms=time_ms(lambda: agc.agc_int16_plain(state, x, params,
                                                      out_p), 1, warmup=0),
         chain_floor_ms=device_ms(lambda: agc.chain_probe(x, state.gain,
                                                          params)),
-        device_us_by_kernel=device_us_by_kernel(
+        **profiled(
             lambda: agc.agc_int16(state, x, params, out_k)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         chain_note=f"{n} dependent gain steps per channel"))
+    rows_out += wbfm_kernel_rows(gen)
     for row in rows_out:
         row["bound_us"] = row["bound_ms"] * 1e3
-        emit({"phase": "kernel", **row})
+        emit({"phase": "kernel", **printable(row)})
     return rows_out
+
+
+def printable(row: dict) -> dict:
+    """A kernel row without its CudaKernel object."""
+    return {k: v for k, v in row.items() if k != "kernel"}
+
+
+def wbfm_kernel_rows(gen):
+    """K-PILOT, K-DEEMPH and K-AGC's float mode against their plain
+    versions at the shapes the wideband WBFM step gives them: 128
+    channels of T = 8 * 5,034 = 40,272 samples at 192 kHz (stereo: 256
+    de-emphasis rows; a 38,400-sample AGC window)."""
+    import torch
+
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.ops.agc import (
+        AGCState, agc_process, make_agc_params,
+    )
+    from phantomsdr_tpu_torch.ops.cuda import agc, deemph, pilot
+    from phantomsdr_tpu_torch.ops.deemph import deemph_alpha
+    from phantomsdr_tpu_torch.ops.polyphase import fir
+    from phantomsdr_tpu_torch.ops.stereo import make_stereo_params
+
+    cfg = config_from_dict(WIDEBAND_CFG)
+    c, fs = cfg.max_channels, cfg.audio_sps
+    n = cfg.hop_batch * cfg.audio_fft_size // 2
+    rows = []
+
+    # ---- K-PILOT: the pilot of MPX-like rows, two calls that carry the
+    # phase and frequency, the stereo mix on FM rows (every third row
+    # not FM)
+    t = torch.arange(2 * n, device="cuda", dtype=torch.float32) / fs
+    th = 2 * math.pi * 19000.0 * t + torch.rand(c, 1, device="cuda",
+                                                generator=gen) * 6
+    x = (0.3 * torch.sin(2 * math.pi * 800 * t)
+         + 0.09 * torch.cos(th)
+         + 0.2 * torch.sin(2 * math.pi * 1300 * t) * torch.cos(2 * th)
+         + 0.02 * torch.randn(c, 2 * n, device="cuda", generator=gen))
+    x = x * (1 + torch.arange(c, device="cuda")[:, None] % 3)
+    sp = make_stereo_params(fs)
+    y = fir(torch.cat([torch.zeros(c, sp.taps.shape[0] - 1, device="cuda"),
+                       x], 1), sp.taps)
+    fm = torch.arange(c, device="cuda") % 3 != 1
+    segs = [(y[:, k * n:(k + 1) * n].contiguous(),
+             x[:, k * n:(k + 1) * n].contiguous()) for k in range(2)]
+    scale = float(x.abs().max())
+    del t, th, x, y
+    zero = torch.zeros(c, device="cuda")
+    kcar = pcar = (zero, zero)
+    pilot_err = 0.0
+    for k, (ys, xs) in enumerate(segs):
+        got = pilot.pilot_mix(*kcar, sp.f_nom, ys, xs=xs, fm_mask=fm)
+        want = pilot.pilot_mix_plain(*pcar, sp.f_nom, ys, xs=xs, fm_mask=fm)
+        torch.cuda.synchronize()
+        pilot_err = max(pilot_err, float((got[2] - want[2]).abs().max()),
+                        float((got[3] - want[3]).abs().max()))
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"K-PILOT vs plain: phase/freq carries "
+                                 f"differ after call {k + 1}")
+        kcar, pcar = got[:2], want[:2]
+    if not pilot_err <= PLL_ATOL * scale:
+        raise AssertionError(f"K-PILOT vs plain: max |diff| {pilot_err} > "
+                             f"{PLL_ATOL} * {scale}")
+    ys, xs = segs[1]
+    del segs, got, want
+    b_ms, b_by = bound_ms(4 * c * n * 4 + 4 * c * 4 + c,
+                          c * n * PILOT_OPS_PER_SAMPLE)
+
+    def run_pilot():
+        pilot.pilot_mix(zero, zero, sp.f_nom, ys, xs=xs, fm_mask=fm)
+
+    rows.append(dict(
+        name="K-PILOT pilot PLL + stereo demix", route="cuda",
+        source="phantomsdr_tpu_torch/csrc/pilot.cu",
+        replaces="phantomsdr_tpu/ops/stereo.py:160 (pilot_track, lax.scan "
+                 "via ops/unroll.py:60) + stereo.py:196 (stereo_demix)",
+        kernel=pilot.KERNEL,
+        shape=f"[{c}, {n}] f32 pilot + delayed MPX -> [{2 * c}, {n}] f32 "
+              f"L/R rows",
+        max_abs_err=pilot_err, chained_calls=2,
+        tolerance=f"|diff| <= {PLL_ATOL} * max|x| on ph and L/R, carries "
+                  f"equal",
+        ms=time_ms(run_pilot, 10),
+        kernel_ms=kernel_ms(run_pilot),
+        device_ms=device_ms(run_pilot),
+        plain_ms=time_ms(lambda: pilot.pilot_mix_plain(
+            zero, zero, sp.f_nom, ys, xs=xs, fm_mask=fm), 1, warmup=0),
+        chain_floor_ms=device_ms(lambda: pilot.chain_probe(ys, zero, zero,
+                                                           sp.f_nom)),
+        **profiled(run_pilot),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        chain_note=f"{n} dependent loop steps per channel"))
+    del ys, xs
+
+    # ---- K-DEEMPH on the 2C stereo stream rows, with the carry and a
+    # mask of FM rows (inactive rows pass through)
+    a = deemph_alpha(fs, cfg.deemphasis)
+    xd = torch.randn(2 * c, n, device="cuda", generator=gen) * 0.2
+    y0 = torch.randn(2 * c, device="cuda", generator=gen) * 0.2
+    mask = (torch.arange(2 * c, device="cuda") // 2) % 16 != 5
+    got_c, got = deemph.deemph_process(y0, a, xd, mask)
+    want_c, want = deemph.deemph_process_plain(y0, a, xd, mask)
+    torch.cuda.synchronize()
+    de_scale = float(xd.abs().max())
+    de_err = max(float((got - want).abs().max()),
+                 float((got_c - want_c).abs().max()))
+    if not (de_err <= DEEMPH_ATOL * de_scale
+            and torch.equal(got[~mask], xd[~mask])
+            and torch.equal(got_c[~mask], y0[~mask])):
+        raise AssertionError(f"K-DEEMPH vs plain: max |diff| {de_err} > "
+                             f"{DEEMPH_ATOL} * {de_scale}, or a masked "
+                             f"row changed")
+    del got, want
+    b_ms, b_by = bound_ms(2 * 2 * c * n * 4 + 2 * c * 9,
+                          2 * c * n * DEEMPH_OPS_PER_SAMPLE)
+
+    def run_deemph():
+        deemph.deemph_process(y0, a, xd, mask)
+
+    rows.append(dict(
+        name="K-DEEMPH de-emphasis IIR", route="cuda",
+        source="phantomsdr_tpu_torch/csrc/deemph.cu",
+        replaces="phantomsdr_tpu/ops/deemph.py:45 (deemph_process, "
+                 "lax.associative_scan)",
+        kernel=deemph.KERNEL,
+        shape=f"[{2 * c}, {n}] f32 -> [{2 * c}, {n}] f32, alpha {a:.6f}",
+        max_abs_err=de_err,
+        tolerance=f"|diff| <= {DEEMPH_ATOL} * max|x|, masked rows equal",
+        ms=time_ms(run_deemph, 20),
+        kernel_ms=kernel_ms(run_deemph),
+        device_ms=device_ms(run_deemph),
+        plain_ms=time_ms(lambda: deemph.deemph_process_plain(y0, a, xd,
+                                                             mask),
+                         1, warmup=0),
+        chain_floor_ms=None,
+        **profiled(run_deemph),
+        # its input evicted from L2 before each call (the 41 MB input
+        # fits in the 50 MB L2, where the warm calls above find it)
+        kernel_ms_cold_l2=kernel_ms(run_deemph, cold=True),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        chain_note="no serial loop: chunks of 32 samples a thread, "
+                   "combined by a block scan"))
+    del xd
+
+    # ---- K-AGC float mode: a 192 kHz window (38,400 samples) over the
+    # step's 40,272, the device scratch path, mixed warm-up states
+    params = make_agc_params(fs)
+    w = params.window
+    xa = torch.randn(c, n, device="cuda", generator=gen) * 0.05
+    xa[:, ::97] *= 8.0
+    xa[c // 2:] *= 10.0
+    state = AGCState(
+        tail=torch.randn(c, w - 1, device="cuda", generator=gen) * 0.05,
+        gain=torch.rand(c, device="cuda", generator=gen) * 5.0,
+        seen=torch.tensor([0, w // 2, w - 1, w] * (c // 4),
+                          dtype=torch.int32, device="cuda"))
+    st_k, y_k = agc.agc_float(state, xa, params)
+    st_p, y_p = agc_process(state, xa, params)
+    torch.cuda.synchronize()
+    agc_err = float((y_k - y_p).abs().max())
+    if not (torch.allclose(y_k, y_p, rtol=1e-6, atol=1e-7)
+            and torch.equal(st_k.tail, st_p.tail)
+            and torch.equal(st_k.seen, st_p.seen)
+            and torch.allclose(st_k.gain, st_p.gain, rtol=1e-6, atol=0)):
+        raise AssertionError(f"K-AGC float vs plain: max |diff| {agc_err}, "
+                             f"or the carried state differs")
+    del y_k, y_p
+    m = w - 1 + n
+    b_ms, b_by = bound_ms(c * (4 * n + 4 * (w - 1) + 8) + c * (4 * n
+                          + 4 * (w - 1) + 8),
+                          c * (m * math.log2(w) + n * AGC_OPS_PER_SAMPLE))
+    rows.append(dict(
+        name="K-AGC look-ahead AGC, float output", route="cuda",
+        source="phantomsdr_tpu_torch/csrc/agc.cu",
+        replaces="phantomsdr_tpu/ops/agc.py:193 (lax.scan) + "
+                 "agc.py:108 (_sliding_max_abs), WBFM path",
+        kernel=agc.FLOAT_KERNEL,
+        shape=f"[{c}, {n}] f32, window {w} -> [{c}, {n}] f32",
+        max_abs_err=agc_err, tolerance="rtol 1e-6, atol 1e-7",
+        ms=time_ms(lambda: agc.agc_float(state, xa, params), 20),
+        kernel_ms=kernel_ms(lambda: agc.agc_float(state, xa, params)),
+        device_ms=device_ms(lambda: agc.agc_float(state, xa, params)),
+        plain_ms=time_ms(lambda: agc_process(state, xa, params), 1,
+                         warmup=0),
+        chain_floor_ms=device_ms(lambda: agc.chain_probe(xa, state.gain,
+                                                         params)),
+        **profiled(
+            lambda: agc.agc_float(state, xa, params)),
+        # the int16 mode at the same shapes, for comparison
+        int16_device_ms=device_ms(lambda: agc.agc_int16(
+            state, xa, params, torch.empty(cfg.hop_batch, c, n // cfg.hop_batch,
+                                           dtype=torch.int16,
+                                           device="cuda"))),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        chain_note=f"{n} dependent gain steps per channel"))
+    return rows
 
 
 # per-sample operation counts used for the operations bound (float32
 # operations, transcendental functions counted as ~20 each)
 PLL_OPS_PER_SAMPLE = 60
 AGC_OPS_PER_SAMPLE = 12
+PILOT_OPS_PER_SAMPLE = 55      # sin + cos(2 ph) and 15 float operations
+DEEMPH_OPS_PER_SAMPLE = 3
+# K-DEEMPH vs its plain loop: the same recurrence, but each 32-sample
+# chunk starts from a carry the block scan composed in another order
+# (tests/test_deemph.py's atol 2e-5 at unit scale)
+DEEMPH_ATOL = 2e-5
 # K-PLL vs its plain version: the same float32 recursion in the same
 # operation order; only sin/cos/atan2 may round differently (a few ulps
 # a sample), and the stable 2nd-order loop pulls such a phase error back
@@ -477,8 +947,288 @@ def phase_small():
           "waterfall_frac_differing": float((wdiff > 0).mean())})
 
 
+def warm_wbfm_state(pipe, state):
+    """The state with the AGC past its look-ahead (seen = window, unit
+    gain) and the look-ahead tail filled with FM discriminator output of
+    the RDS MPX, so that a few steps already give audio and baseband."""
+    import torch
+
+    agc = state.audio.agc
+    w = pipe.agc_params.window
+    fs = pipe.cfg.audio_sps
+    fm = 2 * math.pi * 75000.0 / fs * rds_mpx(w - 1, fs)
+    tail = torch.from_numpy(fm).to(pipe.device).expand_as(agc.tail)
+    return state._replace(audio=state.audio._replace(agc=agc._replace(
+        tail=tail.contiguous(), seen=torch.full_like(agc.seen, w),
+        gain=torch.ones_like(agc.gain))))
+
+
+def phase_small_wbfm():
+    """The whole WBFM step (stereo + RDS + de-emphasis + Opus
+    decimation, 1.536 MSPS, FFT 32768, 192 kHz audio, 4 channels) on the
+    card against the whole step on the CPU, 3 steps from a warm AGC."""
+    import torch
+
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.pipeline import HopPipeline, channels_from_numpy
+
+    cfg = config_from_dict({
+        "input": {"sps": 1_536_000, "frequency": 98_000_000,
+                  "fft_size": 32768, "signal": "iq", "audio_sps": 192000,
+                  "waterfall_size": 512, "stereo": True, "rds": True,
+                  "deemphasis": 75, "audio_compression": "opus",
+                  "driver": {"format": "s16"}},
+        "tpu": {"hop_batch": 4, "max_channels": 4}})
+    steps = 3
+    wph = cfg.hop_size * 2
+    blk = cfg.hop_batch * wph
+    up = cfg.sps // cfg.audio_sps
+    n = (steps * blk + wph) // 2
+    raw_all = fm_s16(rds_mpx(n // up + 1, cfg.audio_sps), up, cfg.sps,
+                     "cpu", SEED)[:2 * n]
+    mid, half = cfg.fft_result_size // 2, cfg.audio_fft_size // 2
+    results = {}
+    for dev in ("cuda", "cpu"):
+        pipe = HopPipeline(cfg, device=dev)
+        table = channels_from_numpy(
+            [mid - half // 2] * 4, [mid + half // 2] * 4, [mid] * 4,
+            [3, 3, 0, 3], [True, True, True, False],
+            rds=[True, False, False, True], device=dev)
+        state = warm_wbfm_state(pipe, pipe.init_state())
+        audio, rds = [], []
+        for k in range(steps):
+            raw = raw_all[k * blk:k * blk + blk + wph].to(dev)
+            state, out = pipe.step(state, raw, table, waterfall="off")
+            audio.append(out.audio.cpu().numpy().astype(int))
+            rds.append(out.rds.cpu().numpy().astype(int))
+        results[dev] = (np.concatenate(audio, 1), np.concatenate(rds, 2))
+    a_err = int(np.abs(results["cuda"][0] - results["cpu"][0]).max())
+    rdiff = np.abs(results["cuda"][1] - results["cpu"][1])
+    peak = int(np.abs(results["cpu"][0][0]).max())
+    if (a_err > 4 or rdiff.max() > 1 or peak < 1000
+            or not results["cpu"][1][0].any()):
+        raise AssertionError(f"WBFM card vs CPU step: audio {a_err} (peak "
+                             f"{peak}), RDS int8 {rdiff.max()}")
+    emit({"phase": "small_wbfm", "audio_max_abs_int16": a_err,
+          "audio_peak_int16": peak,
+          "rds_max_steps": int(rdiff.max()),
+          "rds_frac_differing": float((rdiff > 0).mean()),
+          "audio_shape": list(results["cuda"][0].shape)})
+
+
+def phase_wbfm(kernels):
+    """The wideband profile with stereo, de-emphasis and Opus at full
+    width (128 WBFM channels over four stations): 10 steps through
+    HopPipeline.step, each ear's tone and its rejection of the other
+    through the 48 kHz decimated stream, the launches, the step time,
+    a profiler split of one step, and a short DSPDriver run."""
+    import torch
+
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.pipeline import HopPipeline, channels_from_numpy
+
+    cfg = config_from_dict(WIDEBAND_CFG)
+    st = Stations(cfg)
+    c = cfg.max_channels
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    hop = cfg.hop_size
+    blk = cfg.hop_batch * hop
+    steps = 10
+    stream = torch.cat([st.iq(k * blk, blk, gen) for k in range(steps + 2)]
+                       + [st.iq((steps + 2) * blk, hop, gen)])
+    # channel i on station i % 4, i // 4 bins (19 Hz each) off its carrier
+    mid = np.array([st.m[i % 4] + i // 4 for i in range(c)])
+    table = channels_from_numpy(mid - st.off96, mid + st.off96, mid,
+                                np.full(c, 3), np.ones(c, bool),
+                                device="cuda")
+    pipe = HopPipeline(cfg, device="cuda")
+    state = pipe.init_state()
+    wire = 2 * blk
+    audio, step_ms = [], []
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    for s in range(steps):
+        raw = stream[s * wire: s * wire + wire + 2 * hop]
+        t0 = time.perf_counter()
+        state, out = pipe.step(state, raw, table, waterfall="off")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        audio.append(out.audio.cpu().numpy())
+        if not bool(torch.isfinite(out.avg_power).all()):
+            raise AssertionError(f"wbfm step {s}: non-finite channel power")
+    launches = {k.name: k.launches for k in kernels}
+    want_shape = (c, 2 * cfg.hop_batch * cfg.audio_fft_size // 2 // 4)
+    if audio[0].shape != want_shape:
+        raise AssertionError(f"wbfm audio {audio[0].shape}, want "
+                             f"{want_shape}")
+    # each ear over the last 5 steps (1.05 s at 48 kHz)
+    rate = cfg.opus_rate
+    a = np.concatenate(audio[-5:], axis=1).astype(np.float64)
+    sep = {}
+    for ch in [ch for ch in (0, 1, 2, 3, 37, 127) if ch < c]:
+        left, right = a[ch, 0::2], a[ch, 1::2]
+        res = {"left_hz": peak_hz(left, rate), "right_hz": peak_hz(right, rate),
+               "left_db": 20 * math.log10(tone_amp(left, 800, rate)
+                                          / tone_amp(left, 1300, rate)),
+               "right_db": 20 * math.log10(tone_amp(right, 1300, rate)
+                                           / tone_amp(right, 800, rate)),
+               "rms": float(np.sqrt(np.mean(a[ch] ** 2)))}
+        sep[ch] = res
+        if (abs(res["left_hz"] - 800) > 3 or abs(res["right_hz"] - 1300) > 3
+                or res["left_db"] <= 20 or res["right_db"] <= 20
+                or res["rms"] < 100):
+            raise AssertionError(f"wbfm channel {ch}: {res}")
+    for name in ("pilot", "deemph", "agc_float"):
+        if launches[name] <= 0:
+            raise AssertionError(f"wbfm: {name} not launched: {launches}")
+    raw = stream[:wire + 2 * hop]
+
+    def one_step():
+        pipe.step(state, raw, table, waterfall="off")
+    split = split_device_us(one_step)
+    med = float(np.median(step_ms[1:]))
+    drv = drive_driver(cfg, stream[:4 * wire].cpu().numpy().tobytes(),
+                       st.m[0] - st.off96, st.m[0], st.m[0] + st.off96,
+                       rds=False)
+    emit({"phase": "wbfm", "steps": steps, "launches": launches,
+          "separation": sep, "step_ms": step_ms,
+          "step_ms_median": med, "device_split": split,
+          "device_busy_share": split["total_us"] / 1e3 / med,
+          "audio_shape": list(audio[0].shape),
+          "samples_per_step": cfg.hop_batch * hop,
+          "msps": cfg.hop_batch * hop / (med * 1e-3) / 1e6, "driver": drv})
+    return launches
+
+
+def phase_rds(kernels):
+    """The soak profile (stereo + RDS + de-emphasis, 128 channels) at
+    full width over an FM capture of the RDS MPX: the port's RDSDecoder,
+    fed one opted-in channel, must assemble the exact PI and PS within
+    RDS_STEPS steps; rows with the rds flag off come out as zeros; the
+    shared pilot's stereo carries mirror the RDS ones."""
+    import torch
+
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.pipeline import HopPipeline, channels_from_numpy
+    from phantomsdr_tpu_torch.runtime.rds import RDSDecoder
+
+    cfg = config_from_dict(SOAK_CFG)
+    c = cfg.max_channels
+    wph = cfg.hop_size * 2
+    blk = cfg.hop_batch * wph
+    up = cfg.sps // cfg.audio_sps
+    n = (RDS_STEPS * blk + wph) // 2
+    stream = fm_s16(rds_mpx(n // up + 1, cfg.audio_sps), up, cfg.sps, "cuda",
+                    SEED + 3)[:2 * n]
+    mid, off96 = cfg.fft_result_size // 2, 96000 * cfg.fft_result_size // cfg.sps
+    mids = mid + np.arange(c) % 8               # a few bins off the carrier
+    rds_flags = np.arange(c) % 2 == 0
+    table = channels_from_numpy(mids - off96, mids + off96, mids,
+                                np.full(c, 3), np.ones(c, bool),
+                                rds=rds_flags, device="cuda")
+    pipe = HopPipeline(cfg, device="cuda")
+    state = pipe.init_state()
+    dec = RDSDecoder(cfg.audio_sps / pipe.rds_params.decim)
+    got_at, step_ms = None, []
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    for s in range(RDS_STEPS):
+        raw = stream[s * blk: s * blk + blk + wph]
+        t0 = time.perf_counter()
+        state, out = pipe.step(state, raw, table, waterfall="off")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        rds8 = out.rds.cpu().numpy()
+        if rds8[~rds_flags].any():
+            raise AssertionError(f"rds step {s}: a row with rds off has "
+                                 f"baseband")
+        dec.feed(rds8[0])
+        g = dec.group.status()
+        if got_at is None and g["pi"] == f"{RDS_PI:04X}" and g["ps"] == RDS_PS:
+            got_at = s + 1
+    launches = {k.name: k.launches for k in kernels}
+    a = state.audio
+    if not (torch.equal(a.st.phase, a.rds.phase)
+            and torch.equal(a.st.freq, a.rds.freq)):
+        raise AssertionError("rds: the shared pilot's stereo carries do not "
+                             "mirror the RDS ones")
+    g = dec.group.status()
+    if got_at is None:
+        raise AssertionError(f"rds: PI/PS not decoded in {RDS_STEPS} steps: "
+                             f"{g}")
+    raw = stream[:blk + wph]
+
+    def one_step():
+        pipe.step(state, raw, table, waterfall="off")
+    split = split_device_us(one_step)
+    med = float(np.median(step_ms[1:]))
+    drv = drive_driver(cfg, stream[:4 * blk].cpu().numpy().tobytes(),
+                       mid - off96, mid, mid + off96, rds=True)
+    emit({"phase": "rds", "steps": RDS_STEPS, "pi_ps_at_step": got_at,
+          "decoder": g, "launches": launches, "step_ms": step_ms,
+          "step_ms_median": med, "device_split": split,
+          "device_busy_share": split["total_us"] / 1e3 / med,
+          "rds_shape": list(out.rds.shape), "driver": drv})
+    return launches
+
+
+RDS_STEPS = 30        # 5.1 s of capture; PS comes in 0A groups every 1.75 s
+
+
+def drive_driver(cfg, host_bytes: bytes, l: int, m: int, r: int,
+                 rds: bool) -> dict:
+    """DSPDriver over an in-memory capture with one FM listener (with
+    the RDS opt-in where asked): every batch must reach the consumer in
+    the decimated / stereo / RDS layout of the config."""
+    from phantomsdr_tpu_torch.runtime.driver import DSPDriver, SampleSource
+    from phantomsdr_tpu_torch.runtime.registry import ChannelRegistry
+
+    src = SampleSource(cfg, io.BytesIO(host_bytes))
+    channels = ChannelRegistry(cfg)
+    slot = channels.acquire("smoke")
+    channels.retune(slot, l, float(m), r)
+    channels.set_mode(slot, "FM")
+    channels.set_rds(slot, rds)
+    got, bad, done = [], [], threading.Event()
+    nblocks = len(host_bytes) // (cfg.hop_batch * cfg.hop_size * 2
+                                  * (1 if cfg.input_format == "u8" else 2))
+
+    def consumer(frame0, audio, pwr, wfv, due, wf_meta, audio_meta, rds8):
+        per_ch = cfg.audio_channels * cfg.hop_batch * cfg.audio_fft_size // 2
+        if cfg.device_decim:
+            ok = audio.ndim == 2 and audio.shape[1] == per_ch // cfg.opus_decim
+        else:
+            ok = audio.shape[0] == cfg.hop_batch
+        if rds:
+            ok = ok and rds8 is not None and rds8.shape[1] == 2
+        else:
+            ok = ok and rds8 is None
+        if not ok or not np.isfinite(pwr).all():
+            bad.append((frame0, audio.shape,
+                        None if rds8 is None else rds8.shape))
+        got.append(frame0)
+        if len(got) >= nblocks:
+            done.set()
+
+    drv = DSPDriver(cfg, src, channels, consumer,
+                    waterfall_active=lambda: False, device="cuda")
+    drv.start()
+    ok = done.wait(timeout=300)
+    drv.stop()
+    snap = drv.metrics.snapshot(cfg)
+    if not ok or bad or drv.metrics.device_errors:
+        raise AssertionError(f"driver: {len(got)}/{nblocks} batches, bad "
+                             f"{bad}, errors {drv.metrics.device_errors} "
+                             f"{drv.metrics.last_device_error}")
+    return {"batches": len(got), "step_ms_p50": snap["step_ms_p50"],
+            "device_errors": drv.metrics.device_errors}
+
+
 def phase_main(cfg, tones, stream, kernels):
-    """Full width main path: 10 'views' + 2 'off' steps."""
+    """Full width main path: 10 'views' + 2 'off' steps; ``kernels`` are
+    the path's (K-WF, K-PLL, K-AGC)."""
     import torch
 
     from phantomsdr_tpu_torch.pipeline import (
@@ -663,10 +1413,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from phantomsdr_tpu_torch.config import config_from_dict
-    from phantomsdr_tpu_torch.ops.cuda import agc, pll, waterfall
+    from phantomsdr_tpu_torch.ops.cuda import agc, deemph, pilot, pll, waterfall
 
     torch.manual_seed(SEED)
-    kernels = [waterfall.KERNEL, pll.KERNEL, agc.KERNEL]
+    main_kernels = [waterfall.KERNEL, pll.KERNEL, agc.KERNEL]
+    wbfm_kernels = [pilot.KERNEL, deemph.KERNEL, agc.FLOAT_KERNEL]
+    kernels = main_kernels + wbfm_kernels
     smi = phase_card()
     phase_build(kernels)
 
@@ -679,16 +1431,28 @@ def main() -> int:
                        + [tones.iq(12 * blk, hop, gen)])
     rows = phase_kernels(cfg, stream[:(cfg.hop_batch + 1) * 2 * hop])
     phase_small()
-    launches = phase_main(cfg, tones, stream, kernels)
+    phase_small_wbfm()
+    launches = phase_main(cfg, tones, stream, main_kernels)
     host_bytes = stream[:4 * 2 * blk].cpu().numpy().tobytes()
     del stream
     phase_driver(cfg, tones, host_bytes)
     phase_server(cfg, tones, host_bytes)
+    wbfm_launches = phase_wbfm(kernels)
+    rds_launches = phase_rds(kernels)
 
+    # each kernel's launches on its path: the bench-config main phase
+    # for K-WF, K-PLL and K-AGC, the wideband WBFM phase for the others
     for row in rows:
-        row["launches"] = launches[next(k.name for k in kernels
-                                        if row["source"].endswith(
-                                            f"/{k.name}.cu"))]
+        k = row.pop("kernel")
+        path = "main" if k in main_kernels else "wbfm"
+        row["launches"] = (launches if path == "main"
+                           else wbfm_launches)[k.name]
+        row["launches_path"] = path
+        row["launches_by_path"] = {"main": launches.get(k.name, 0),
+                                   "wbfm": wbfm_launches[k.name],
+                                   "rds": rds_launches[k.name]}
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']}: not launched on its path")
         row["checked"] = True
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -14,12 +14,12 @@ for compatibility; the compute device is chosen by the caller
 (``HopPipeline(cfg, device=...)``, ``--device``).
 
 This is the PyTorch/CUDA package's own copy of the JAX package's
-config.  The DSP stages this package does not implement yet are
-rejected at config time with a clear error (``unsupported_options``),
-never silently skipped: stereo, nr, rds, deemphasis, device-side Opus
-decimation, mesh mode and AV1 waterfall compression.  The ``[tpu]``
-table keeps its name for config-file compatibility; its
-``fft_strategy`` key is read and ignored.
+config, with its validations.  The options this package does not
+implement yet are rejected at config time with a clear error
+(``unsupported_options``), never silently skipped: nr, mesh mode and
+AV1 waterfall compression.  The ``[tpu]`` table keeps its
+name for config-file compatibility; its ``fft_strategy`` key is read
+and ignored.
 """
 
 from __future__ import annotations
@@ -70,9 +70,9 @@ class ServerConfig:
     # With am_sync on, each listener can still opt out to envelope
     # per-client ({"cmd":"am_sync","enabled":false}).
     am_sync: bool = True
-    # Opt-in DSP stages of the JAX package, parsed so its config files
-    # load; every one of them is rejected by unsupported_options until
-    # this package implements it.
+    # Opt-in DSP stages: WBFM stereo, RDS and de-emphasis run on the
+    # device; the noise processors (nr*, nb_*) are parsed so the JAX
+    # package's config files load, and rejected by unsupported_options.
     stereo: bool = False
     nr: bool = False
     nr_algo: str = "spectral"
@@ -207,12 +207,61 @@ class ServerConfig:
                 f"decimation reaches a legal rate {OPUS_RATES}; use one of "
                 f"those rates (or a multiple) or audio_compression='flac'")
 
+        if self.stereo:
+            from .ops.stereo import MIN_STEREO_SPS
+
+            if self.audio_sps < MIN_STEREO_SPS:
+                # the 38 kHz DSB subcarrier (+15 kHz audio) must sit
+                # inside the audio Nyquist or there is nothing to decode
+                raise ValueError(
+                    f"[input] stereo=true needs audio_sps >= "
+                    f"{MIN_STEREO_SPS} (WBFM multiplex bandwidth); got "
+                    f"{self.audio_sps}")
+
+        if self.nr and self.nr_algo not in ("spectral", "lms", "notch",
+                                            "nb"):
+            raise ValueError(
+                f"[input] nr_algo must be spectral/lms/notch/nb, got "
+                f"{self.nr_algo!r}")
+        if self.nr and self.stereo:
+            # NR operates on the mono stream before the stereo demix
+            raise ValueError("[input] nr=true and stereo=true cannot "
+                             "be combined")
+
         if self.fft_size <= 0 or self.fft_size & (self.fft_size - 1):
             # the reference's FFTW accepts arbitrary sizes; the pyramid
             # halvings and the waterfall kernel's tiling assume a power
             # of two -- fail at config time with a clear message
             raise ValueError("[input] fft_size must be a power of two "
                              f"(got {self.fft_size})")
+
+        if self.deemphasis < 0 or self.deemphasis > 1000:
+            raise ValueError("[input] deemphasis must be 0..1000 us")
+
+        if self.rds:
+            from .ops.rds import (
+                MAX_BASEBAND_SPS, rds_decim_for,
+            )
+
+            # the 57 kHz subcarrier (+2.4 kHz data lobe) must sit inside
+            # the audio Nyquist
+            min_sps = int(2 * (57000 + 2400))
+            if self.audio_sps < min_sps:
+                raise ValueError(
+                    f"[input] rds=true needs audio_sps >= {min_sps} "
+                    f"(57 kHz subcarrier bandwidth); got {self.audio_sps}")
+            d = rds_decim_for(self.audio_sps, self.audio_fft_size // 2)
+            if self.audio_sps / d > MAX_BASEBAND_SPS:
+                # the decimation factor must divide the per-hop audio
+                # block; a pathological audio_fft_size would ship
+                # near-raw-rate baseband over the link
+                raise ValueError(
+                    f"[input] rds=true: the audio block "
+                    f"(audio_fft_size/2 = {self.audio_fft_size // 2}) "
+                    f"only allows decimation by {d} "
+                    f"({self.audio_sps / d:.0f} S/s baseband > "
+                    f"{MAX_BASEBAND_SPS:.0f}); pick an fft_size whose "
+                    f"audio block has a larger power-of-two factor")
 
         unsupported = unsupported_options(self)
         if unsupported:
@@ -289,18 +338,8 @@ def unsupported_options(c: ServerConfig) -> list[str]:
     """The opt-in stages this package does not implement yet, as they
     are set in ``c`` (empty when the config is servable)."""
     out = []
-    if c.stereo:
-        out.append("[input] stereo=true")
     if c.nr:
         out.append("[input] nr=true")
-    if c.rds:
-        out.append("[input] rds=true")
-    if c.deemphasis != 0:
-        out.append(f"[input] deemphasis={c.deemphasis:g}")
-    if c.device_decim:
-        out.append(f"on-device Opus decimation (audio_compression='opus' "
-                   f"at audio_sps={c.audio_sps}: /{c.opus_decim} divides "
-                   f"the per-step block)")
     if c.mesh_devices > 1:
         out.append(f"[tpu] mesh_devices={c.mesh_devices}")
     if c.waterfall_compression == "av1":

@@ -14,6 +14,9 @@
 //
 // written straight into the [B, C, half] audio slice of the packed
 // output buffer (t = b*half + s), with the new tail, gain and seen.
+// agc_float_launch runs the same kernel compiled with kFloat: it stores
+// out[t] itself as float32 into a [C, L] buffer (the input of the WBFM
+// stages, which convert to int16 after them) and is otherwise the same.
 //
 // Bound: the gain recursion, a dependent chain of L steps per channel
 // (a subtract, a multiply, a subtract and a select per step).
@@ -181,15 +184,17 @@ __device__ __forceinline__ float chain(float* d, int s, int e, float g,
 
 // kScratch: P, Q and the table are in scratch (device memory), not in
 // shared memory; a compile-time choice, so that the chain's reads are
-// shared-memory loads when they can be.
-template <bool kScratch>
+// shared-memory loads when they can be.  kFloat: the output is out[t]
+// as float32 into out_f [C, L]; else int16 into out [B, C, half].
+template <bool kScratch, bool kFloat>
 __global__ void __launch_bounds__(kThreads)
 agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
            const float* __restrict__ gain0, const int* __restrict__ seen0,
            int channels, int len, int window, float attack, float release,
            float level, int half, int16_t* __restrict__ out,
-           float* __restrict__ tail_out, float* __restrict__ gain_out,
-           int* __restrict__ seen_out, float* scratch) {
+           float* __restrict__ out_f, float* __restrict__ tail_out,
+           float* __restrict__ gain_out, int* __restrict__ seen_out,
+           float* scratch) {
     extern __shared__ __align__(16) float smem[];
     __shared__ int ready;  // chunks whose desired is written
     __shared__ int done;   // chunks whose gains are written
@@ -321,6 +326,10 @@ agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
         }
         for (int t = k * kChunk + wt; t < e; t += kWorkers) {
             const float o = t >= t0 ? __fmul_rn(sample(tc, xc, w1, t), d[t]) : 0.0f;
+            if (kFloat) {
+                out_f[static_cast<long long>(c) * len + t] = o;
+                continue;
+            }
             float v = __fsub_rn(floorf(__fadd_rn(__fmul_rn(o, 16384.0f), 32768.5f)), 32768.0f);
             v = fminf(fmaxf(v, -32768.0f), 32767.0f);
             const int hb = t / half;
@@ -350,6 +359,52 @@ agc_chain_probe(const float* __restrict__ x, const float* __restrict__ gain0,
     gain_out[c] = g;
 }
 
+// Opt in to all the shared memory a block may have, once per device
+// and kernel (less the kernel's static flags).
+template <bool kFloat>
+cudaError_t opt_in_shared(int device) {
+    static bool opted_in[kMaxDevices] = {};
+    if (device < kMaxDevices && opted_in[device]) return cudaSuccess;
+    int most = 0;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, agc_kernel<false, kFloat>);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(agc_kernel<false, kFloat>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   most - static_cast<int>(attr.sharedSizeBytes));
+    if (err != cudaSuccess) {
+        cudaGetLastError();  // not left for the next launcher to report
+        return err;
+    }
+    if (device < kMaxDevices) opted_in[device] = true;
+    return cudaSuccess;
+}
+
+template <bool kFloat>
+int launch(const float* x, const float* tail, const float* gain0, const int* seen0,
+           int channels, int len, int window, float attack, float release, float level,
+           int half, int16_t* out, float* out_f, float* tail_out, float* gain_out,
+           int* seen_out, float* scratch, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (channels == 0) return 0;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (scratch != nullptr) {
+        agc_kernel<true, kFloat><<<channels, kThreads, 0, st>>>(
+            x, tail, gain0, seen0, channels, len, window, attack, release, level,
+            half, out, out_f, tail_out, gain_out, seen_out, scratch);
+    } else {
+        err = opt_in_shared<kFloat>(device);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const size_t smem = sizeof(float) * static_cast<size_t>(channel_floats(window, len));
+        agc_kernel<false, kFloat><<<channels, kThreads, smem, st>>>(
+            x, tail, gain0, seen0, channels, len, window, attack, release, level,
+            half, out, out_f, tail_out, gain_out, seen_out, scratch);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int code) {
@@ -365,39 +420,20 @@ extern "C" int agc_launch(const float* x, const float* tail, const float* gain0,
                           float attack, float release, float level, int half,
                           int16_t* out, float* tail_out, float* gain_out,
                           int* seen_out, float* scratch, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (channels == 0) return 0;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (scratch != nullptr) {
-        agc_kernel<true><<<channels, kThreads, 0, st>>>(
-            x, tail, gain0, seen0, channels, len, window, attack, release, level,
-            half, out, tail_out, gain_out, seen_out, scratch);
-    } else {
-        // opt in to all the shared memory a block may have, once per
-        // device (less the kernel's static flags)
-        static bool opted_in[kMaxDevices] = {};
-        if (device >= kMaxDevices || !opted_in[device]) {
-            int most = 0;
-            cudaFuncAttributes attr;
-            err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-            if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, agc_kernel<false>);
-            if (err == cudaSuccess)
-                err = cudaFuncSetAttribute(agc_kernel<false>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           most - static_cast<int>(attr.sharedSizeBytes));
-            if (err != cudaSuccess) {
-                cudaGetLastError();  // not left for the next launcher to report
-                return static_cast<int>(err);
-            }
-            if (device < kMaxDevices) opted_in[device] = true;
-        }
-        const size_t smem = sizeof(float) * static_cast<size_t>(channel_floats(window, len));
-        agc_kernel<false><<<channels, kThreads, smem, st>>>(
-            x, tail, gain0, seen0, channels, len, window, attack, release, level,
-            half, out, tail_out, gain_out, seen_out, scratch);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return launch<false>(x, tail, gain0, seen0, channels, len, window, attack, release,
+                         level, half, out, nullptr, tail_out, gain_out, seen_out, scratch,
+                         device, stream);
+}
+
+// agc_launch with a float32 output: out: [channels, len].
+extern "C" int agc_float_launch(const float* x, const float* tail, const float* gain0,
+                                const int* seen0, int channels, int len, int window,
+                                float attack, float release, float level, float* out,
+                                float* tail_out, float* gain_out, int* seen_out,
+                                float* scratch, int device, void* stream) {
+    return launch<true>(x, tail, gain0, seen0, channels, len, window, attack, release,
+                        level, len, nullptr, out, tail_out, gain_out, seen_out, scratch,
+                        device, stream);
 }
 
 // The chain floor of agc_launch's shapes: gain_out only.

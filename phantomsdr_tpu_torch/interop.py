@@ -9,9 +9,8 @@ a device; ``state_to_numpy`` returns this package's state with numpy
 leaves, fields named as in the JAX package.  Nothing here imports JAX:
 the JAX types are read by their field names.
 
-The JAX ``AudioState`` also holds carries of stages this package
-rejects at config time (decimator, stereo, noise reduction, RDS,
-de-emphasis); they are unused and not carried over.
+The JAX ``AudioState`` also holds the carries of noise reduction, a
+stage this package rejects at config time; they are not carried over.
 """
 
 from __future__ import annotations
@@ -21,6 +20,9 @@ import torch
 
 from .ops.agc import AGCState, DCBlockerState
 from .ops.channelizer import ChannelState
+from .ops.polyphase import DecimatorState
+from .ops.rds import RDSState
+from .ops.stereo import StereoState
 from .pipeline import (
     AudioState, HopState, WaterfallViews, channels_from_numpy, to_device,
 )
@@ -44,11 +46,15 @@ def state_from_numpy(tree, device="cpu"):
             frame=int(np.asarray(tree.frame)),
             audio=AudioState(chan=_part(ChannelState, a.chan, device),
                              dc=_part(DCBlockerState, a.dc, device),
-                             agc=_part(AGCState, a.agc, device)))
+                             agc=_part(AGCState, a.agc, device),
+                             dec=_part(DecimatorState, a.dec, device),
+                             st=_part(StereoState, a.st, device),
+                             rds=_part(RDSState, a.rds, device),
+                             de=_tensor(a.de, device)))
     if "m_idx" in fields:
         return channels_from_numpy(tree.l, tree.r, tree.m_idx, tree.mode,
                                    tree.active, am_env=tree.am_env,
-                                   device=device)
+                                   rds=tree.rds, device=device)
     if "start" in fields and "length" in fields:
         return _part(WaterfallViews, tree, device)
     raise TypeError(f"not a HopState, ChannelTable or WaterfallViews: "

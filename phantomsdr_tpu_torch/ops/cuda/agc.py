@@ -11,6 +11,12 @@ its warp, while the other 15 warps compute its input (``desired``) a
 chunk ahead of it and write int16 straight into the [B, C, half] audio
 slice of the step's packed output buffer a chunk behind it.
 
+``agc_float`` launches the same kernel compiled with a float32 output:
+its workers store the gained stream itself into a [C, L] buffer (0
+before the window fills), the input of the WBFM stages (stereo, RDS,
+de-emphasis, Opus decimation), which convert to int16 after them.  It
+counts its launches apart (``FLOAT_KERNEL``).
+
 Bound on the card: the gain recursion, a dependent chain of one step's
 samples per channel.  ``chain_probe`` launches that loop alone over
 inputs held in registers; its time is the floor the kernel is measured
@@ -18,8 +24,9 @@ against.  The chain has no branch (it starts where the warm-up ends),
 reads shared memory four samples at a time and has no lane of its warp
 to reconverge with.
 
-``agc_int16_plain`` is the same function in plain PyTorch; the wrapper
-takes it only for CPU tensors.
+``agc_int16_plain`` and ``agc_process`` (ops/agc.py) are the same
+functions in plain PyTorch; the wrappers take them only for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from .build import (
 KERNEL = CudaKernel("agc", [P, P, P, P, I, I, I, F, F, F, I, P, P, P, P, P,
                             I, P],
                     probe_argtypes=[P, P, P, I, I, F, F, I, P])
+FLOAT_KERNEL = CudaKernel("agc_float", [P, P, P, P, I, I, I, F, F, F, P, P,
+                                        P, P, P, I, P], source="agc")
 # shared memory one block may opt in to on sm_90 (bytes) less the
 # kernel's two flag words; above it the kernel's window-max buffers go
 # to a device scratch buffer
@@ -72,26 +81,26 @@ def agc_int16_plain(state: AGCState, x: torch.Tensor, params: AGCParams,
     return new_state
 
 
-def agc_int16(state: AGCState, x: torch.Tensor, params: AGCParams,
-              out16: torch.Tensor) -> AGCState:
-    """AGC the per-channel streams x: [C, L] and write them as int16
-    into out16: [B, C, half] (sample t = b*half + s), L = B*half.
-    Returns the new AGCState."""
-    if check_host_or_cuda(x, "agc_int16"):
-        return agc_int16_plain(state, x, params, out16)
+def _check_state(state: AGCState, x: torch.Tensor, params: AGCParams,
+                 name: str) -> None:
     require_cuda(x, "x", torch.float32, 2)
     require_cuda(state.tail, "tail", torch.float32, 2)
     require_cuda(state.gain, "gain", torch.float32, 1)
     require_cuda(state.seen, "seen", torch.int32, 1)
-    require_cuda(out16, "out16", torch.int16, 3)
+    c = x.shape[0]
+    if (state.tail.shape != (c, params.window - 1)
+            or state.gain.shape[0] != c or state.seen.shape[0] != c):
+        raise ValueError(f"{name}: mismatched shapes x {tuple(x.shape)} "
+                         f"tail {tuple(state.tail.shape)} window "
+                         f"{params.window}")
+
+
+def _launch(kernel: CudaKernel, state: AGCState, x: torch.Tensor,
+            params: AGCParams, *out) -> AGCState:
+    """Launch ``kernel`` with the output argument(s) ``out``; returns
+    the new state."""
     c, n = x.shape
     w = params.window
-    b, oc, half = out16.shape
-    if (state.tail.shape != (c, w - 1) or state.gain.shape[0] != c
-            or state.seen.shape[0] != c or oc != c or b * half != n):
-        raise ValueError("agc_int16: mismatched shapes "
-                         f"x {tuple(x.shape)} tail {tuple(state.tail.shape)} "
-                         f"out16 {tuple(out16.shape)} window {w}")
     tail = torch.empty_like(state.tail)
     gain = torch.empty_like(state.gain)
     seen = torch.empty_like(state.seen)
@@ -99,12 +108,40 @@ def agc_int16(state: AGCState, x: torch.Tensor, params: AGCParams,
     scratch = (x.new_empty(per_channel * c)
                if 4 * per_channel > SMEM_LIMIT else None)
     stream, dev = stream_and_device(x)
-    KERNEL.launch(
+    kernel.launch(
         x.data_ptr(), state.tail.data_ptr(), state.gain.data_ptr(),
-        state.seen.data_ptr(), c, n, w, *_coeffs(params), half,
-        out16.data_ptr(), tail.data_ptr(), gain.data_ptr(), seen.data_ptr(),
+        state.seen.data_ptr(), c, n, w, *_coeffs(params), *out,
+        tail.data_ptr(), gain.data_ptr(), seen.data_ptr(),
         scratch.data_ptr() if scratch is not None else None, dev, stream)
     return AGCState(tail=tail, gain=gain, seen=seen)
+
+
+def agc_int16(state: AGCState, x: torch.Tensor, params: AGCParams,
+              out16: torch.Tensor) -> AGCState:
+    """AGC the per-channel streams x: [C, L] and write them as int16
+    into out16: [B, C, half] (sample t = b*half + s), L = B*half.
+    Returns the new AGCState."""
+    if check_host_or_cuda(x, "agc_int16"):
+        return agc_int16_plain(state, x, params, out16)
+    _check_state(state, x, params, "agc_int16")
+    require_cuda(out16, "out16", torch.int16, 3)
+    c, n = x.shape
+    b, oc, half = out16.shape
+    if oc != c or b * half != n:
+        raise ValueError(f"agc_int16: out16 {tuple(out16.shape)} for x "
+                         f"{tuple(x.shape)}")
+    return _launch(KERNEL, state, x, params, half, out16.data_ptr())
+
+
+def agc_float(state: AGCState, x: torch.Tensor, params: AGCParams
+              ) -> tuple[AGCState, torch.Tensor]:
+    """AGC the per-channel streams x: [C, L] -> (new AGCState, gained
+    stream [C, L] float32), ``agc_process``'s function."""
+    if check_host_or_cuda(x, "agc_float"):
+        return agc_process(state, x, params)
+    _check_state(state, x, params, "agc_float")
+    out = torch.empty_like(x)
+    return _launch(FLOAT_KERNEL, state, x, params, out.data_ptr()), out
 
 
 def chain_probe(x: torch.Tensor, gain0: torch.Tensor,

@@ -50,19 +50,23 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One ``csrc/<name>.cu`` library: build, load, bind, count launches.
+    """One launcher of a ``csrc/<source>.cu`` library: build, load, bind,
+    count launches.
 
     ``argtypes`` lists the ctypes types of the launcher ``<name>_launch``
     (pointers and the stream as ``c_void_p``).  ``launches`` counts the
     wrapper's calls that launched the kernel.  ``probe_argtypes``, where
     given, binds ``<name>_chain_probe_launch``: the kernel's serial loop
     alone, a measuring aid that ``probe`` launches without counting.
+    ``source`` defaults to ``name``; two launchers of one source share
+    its library and count their launches apart.
     """
 
     def __init__(self, name: str, argtypes: list,
-                 probe_argtypes: list | None = None):
+                 probe_argtypes: list | None = None,
+                 source: str | None = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.argtypes = argtypes
         self.probe_argtypes = probe_argtypes
         self.launches = 0
@@ -71,7 +75,7 @@ class CudaKernel:
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes()
                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{h}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{h}.so"
 
     def start_build(self):
         """Start nvcc for this library unless it is already built:
@@ -142,7 +146,8 @@ def finish_builds(procs) -> None:
 
 def build_all(kernels) -> None:
     """Compile every kernel's library at once (one nvcc per source)."""
-    finish_builds([k.start_build() for k in kernels])
+    by_source = {k.lib_path(): k for k in kernels}
+    finish_builds([k.start_build() for k in by_source.values()])
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -9,6 +9,14 @@ One ``HopPipeline.step`` processes ``hop_batch`` hops:
   PLL: kernel K-PLL) -> DC blocker -> look-ahead AGC + int16 (kernel
   K-AGC) -> one packed int8 output buffer.
 
+With any of the WBFM broadcast options on (``[input] stereo``, ``rds``,
+``deemphasis``, Opus at a rate that device decimation reaches), K-AGC
+writes the gained stream as float32 instead, and it goes on through, in
+the JAX package's order: the RDS tap (pilot PLL and 57 kHz downmix:
+kernel K-PILOT; lowpass, decimate, int8), the stereo demix (K-PILOT,
+sharing the RDS tap's pilot when both are on), de-emphasis (kernel
+K-DEEMPH), Opus decimation, and only then int16.
+
 It replaces, in order: src/fft.cpp:10-119 (fft_task), src/fft_impl.cpp
 (FFTW backend + quantize kernels), src/fft_cuda.cu,
 src/signal.cpp:102-298 (send_audio for every client at once),
@@ -39,22 +47,42 @@ from .ops.agc import (
     init_dc_state, make_agc_params,
 )
 from .ops.channelizer import (
-    MODE_AM, ChannelState, ChannelTable, demodulate_batch, init_channel_state,
+    MODE_AM, MODE_FM, ChannelState, ChannelTable, demodulate_batch,
+    float_to_int16, init_channel_state,
 )
-from .ops.cuda.agc import agc_int16
+from .ops.cuda.agc import agc_float, agc_int16
+from .ops.cuda.pilot import pilot_mix
 from .ops.cuda.waterfall import pyramid_width, waterfall_rows
+from .ops.deemph import deemph_alpha, deemph_process
 from .ops.fft import forward_spectrum, frame_hops
+from .ops.polyphase import (
+    DecimatorState, decimator_taps, init_decimator_state, polyphase_decimate,
+)
+from .ops.rds import (
+    RDSParams, RDSState, init_rds_state, make_rds_params, rds_baseband,
+    rds_process,
+)
+from .ops.stereo import (
+    StereoParams, StereoState, delay_stream, init_stereo_state,
+    make_stereo_params, pilot_bandpass, stereo_decode,
+)
 from .ops.windows import hann_window
 
 WATERFALL_MODES = ("views", "full", "off")
 
 
 class AudioState(NamedTuple):
-    """All per-channel carries (one row per channel-table row)."""
+    """All per-channel carries (one row per channel-table row; the
+    decimator and de-emphasis rows are per stream: L0, R0, L1, R1, ...
+    with stereo).  The carries of stages that are off are zero-width."""
 
     chan: ChannelState
     dc: DCBlockerState
     agc: AGCState
+    dec: DecimatorState  # Opus decimation filter tail ([C*nch, 0] if off)
+    st: StereoState      # WBFM stereo carries
+    rds: RDSState        # RDS subcarrier carries
+    de: torch.Tensor     # [C*nch] de-emphasis carry y[-1]
 
 
 class HopState(NamedTuple):
@@ -76,41 +104,63 @@ class WaterfallViews(NamedTuple):
 
 
 class HopOutputs(NamedTuple):
-    audio: torch.Tensor      # [B, C, A/2] int16 (a view into packed)
+    audio: torch.Tensor      # [B, C, nch*A/2] int16 (a view into packed),
+    #                          or with device Opus decimation the
+    #                          continuous streams [C, nch*B*A/2/decim];
+    #                          nch = 2 with stereo (L/R interleaved)
     avg_power: torch.Tensor  # [B, C] f32 (a view into packed)
     wf: torch.Tensor         # [D, W, view_cap] int8 client waterfall views
     #                          (a view into packed; D = 0 unless 'views')
     pyramid: torch.Tensor    # [B, P] full int8 pyramid ('full' mode only)
-    packed: torch.Tensor     # [X] int8: audio|avg_power|wf, the one buffer
-    #                          the serving loop copies to the host
+    rds: torch.Tensor        # [C, 2, rds_t] int8 RDS baseband (a view into
+    #                          packed; rds_t = 0 unless [input] rds)
+    packed: torch.Tensor     # [X] int8: audio|avg_power|wf|rds, the one
+    #                          buffer the serving loop copies to the host
+
+
+def audio_shape(b: int, c: int, half: int, decim: int = 1,
+                nch: int = 1) -> tuple[int, ...]:
+    """Shape of a step's int16 audio: per hop [B, C, nch*half], or with
+    device Opus decimation (decim > 1) each channel's continuous stream
+    [C, nch*B*half/decim]; nch = 2 interleaves L/R."""
+    if decim > 1:
+        return (c, nch * b * half // decim)
+    return (b, c, nch * half)
 
 
 def alloc_packed(b: int, c: int, half: int, d: int, w: int, cap: int,
-                 device) -> tuple[torch.Tensor, ...]:
-    """The step's packed output buffer and its typed views
-    (packed, audio16 [B, C, half], pwr [B, C], wf [D, W, cap]); the
-    stages write straight into the views, so the JAX package's
-    pack_outputs concatenation has no counterpart here.  ``unpack_outputs`` is the
-    host-side inverse."""
-    na, npw = b * c * half * 2, b * c * 4
-    packed = torch.empty(na + npw + d * w * cap, dtype=torch.int8,
+                 device, decim: int = 1, nch: int = 1,
+                 rds_t: int = 0) -> tuple[torch.Tensor, ...]:
+    """The step's packed output buffer and its typed views (packed,
+    audio16 ``audio_shape``, pwr [B, C], wf [D, W, cap], rds [C, 2,
+    rds_t]), in the JAX package's pack_outputs layout; the stages write
+    straight into the views, so its concatenation has no counterpart
+    here.  ``unpack_outputs`` is the host-side inverse."""
+    ashape = audio_shape(b, c, half, decim, nch)
+    na, npw, nwf = int(np.prod(ashape)) * 2, b * c * 4, d * w * cap
+    packed = torch.empty(na + npw + nwf + c * 2 * rds_t, dtype=torch.int8,
                          device=device)
-    audio16 = packed[:na].view(torch.int16).view(b, c, half)
+    audio16 = packed[:na].view(torch.int16).view(ashape)
     pwr = packed[na:na + npw].view(torch.float32).view(b, c)
-    wf = packed[na + npw:].view(d, w, cap)
-    return packed, audio16, pwr, wf
+    wf = packed[na + npw:na + npw + nwf].view(d, w, cap)
+    rds = packed[na + npw + nwf:].view(c, 2, rds_t)
+    return packed, audio16, pwr, wf, rds
 
 
 def unpack_outputs(packed: np.ndarray, b: int, c: int, half: int,
-                   d: int, w: int, cap: int):
+                   d: int, w: int, cap: int, decim: int = 1, nch: int = 1,
+                   rds_t: int = 0):
     """Host-side inverse of ``alloc_packed`` (zero-copy numpy views):
-    (audio [B, C, half] int16, pwr [B, C] f32, wf [D, W, cap] int8)."""
-    na, npw = b * c * half * 2, b * c * 4
-    audio = packed[:na].view(np.int16).reshape(b, c, half)
+    (audio int16 ``audio_shape``, pwr [B, C] f32, wf [D, W, cap] int8,
+    rds [C, 2, rds_t] int8 or None when rds_t is 0)."""
+    ashape = audio_shape(b, c, half, decim, nch)
+    na, npw, nwf = int(np.prod(ashape)) * 2, b * c * 4, d * w * cap
+    audio = packed[:na].view(np.int16).reshape(ashape)
     pwr = packed[na:na + npw].view(np.float32).reshape(b, c)
-    wf = packed[na + npw:na + npw + d * w * cap].view(np.int8).reshape(
-        d, w, cap)
-    return audio, pwr, wf
+    wf = packed[na + npw:na + npw + nwf].view(np.int8).reshape(d, w, cap)
+    rds = (packed[na + npw + nwf:].view(np.int8).reshape(c, 2, rds_t)
+           if rds_t else None)
+    return audio, pwr, wf, rds
 
 
 def to_device(a, dtype: torch.dtype | None, device) -> torch.Tensor:
@@ -130,21 +180,59 @@ def to_device(a, dtype: torch.dtype | None, device) -> torch.Tensor:
     return t
 
 
+def opus_decim_taps(cfg: ServerConfig) -> np.ndarray | None:
+    """Anti-alias prototype for the device Opus decimator (None when
+    decimation is off or left to the host)."""
+    return (decimator_taps(cfg.opus_decim, taps_per_phase=12)
+            if cfg.device_decim else None)
+
+
+def stereo_params_for(cfg: ServerConfig) -> StereoParams | None:
+    return make_stereo_params(cfg.audio_sps) if cfg.stereo else None
+
+
+def rds_params_for(cfg: ServerConfig) -> RDSParams | None:
+    return (make_rds_params(cfg.audio_sps, cfg.audio_fft_size // 2)
+            if cfg.rds else None)
+
+
+def deemph_alpha_for(cfg: ServerConfig) -> float | None:
+    return (deemph_alpha(cfg.audio_sps, cfg.deemphasis)
+            if cfg.deemphasis > 0 else None)
+
+
 def init_audio_state(cfg: ServerConfig, num_channels: int, agc_window: int,
                      dc_delay: int, device) -> AudioState:
+    taps = opus_decim_taps(cfg)
+    nch = cfg.audio_channels
     return AudioState(
         chan=init_channel_state(num_channels, cfg.audio_fft_size, device),
         dc=init_dc_state(num_channels, dc_delay, device),
         agc=init_agc_state(num_channels, agc_window, device),
+        dec=init_decimator_state(num_channels * nch,
+                                 taps.shape[0] if taps is not None else 1,
+                                 device),
+        st=init_stereo_state(num_channels, stereo_params_for(cfg), device),
+        rds=init_rds_state(num_channels, rds_params_for(cfg), device),
+        de=torch.zeros((num_channels * nch,), dtype=torch.float32,
+                       device=device),
     )
 
 
 def map_rows(fn, audio: AudioState) -> AudioState:
     """Apply fn(tensor, group) to every per-channel carry, where group
-    is 'chan', 'dc' or 'agc'."""
-    return AudioState(*(
-        type(part)(*(fn(x, name) for x in part))
-        for name, part in zip(AudioState._fields, audio)))
+    is the AudioState field it belongs to ('chan', 'dc', 'agc', 'dec',
+    'st', 'rds' or 'de')."""
+    def part(x, name):
+        if isinstance(x, torch.Tensor):
+            return fn(x, name)
+        return type(x)(*(fn(v, name) for v in x))
+    return AudioState(*(part(x, name)
+                        for name, x in zip(AudioState._fields, audio)))
+
+
+# carries whose rows are per stream (nch per channel), not per channel
+PER_STREAM = ("dec", "de")
 
 
 def spectra_from_raw(cfg: ServerConfig, window: torch.Tensor,
@@ -213,11 +301,18 @@ def audio_from_spectra(
     chans: ChannelTable,
     frame0: int,                 # global index of hop 0
     reset: torch.Tensor | None,  # [C] int32 RESET_* mask
-    out16: torch.Tensor,         # [B, C, A/2] int16, written in place
+    out16: torch.Tensor,         # int16 audio_shape(...), written in place
+    rds_out: torch.Tensor | None = None,  # [C, 2, rds_t] int8, in place
+    decim_taps: np.ndarray | None = None,      # device Opus decimation
+    stereo_params: StereoParams | None = None,  # device WBFM stereo
+    rds_params: RDSParams | None = None,        # device RDS subcarrier
+    deemph_a: float | None = None,              # device de-emphasis pole
 ) -> tuple[AudioState, torch.Tensor]:
-    """Demod + DC/AGC/int16 chain over the B hops of a step.
+    """Demod + DC/AGC chain over the B hops of a step, then the opt-in
+    WBFM stages and int16.
 
-    Returns (state, avg_power [B, C]); the int16 audio goes to out16.
+    Returns (state, avg_power [B, C]); the int16 audio goes to out16 and
+    the int8 RDS baseband to rds_out.
 
     ``reset`` (int32 per runtime.registry.RESET_*): 1 = zero ALL of the
     slot's carries -- a slot newly (re)assigned to a listener
@@ -230,8 +325,12 @@ def audio_from_spectra(
     half = a // 2
     b = spec.shape[0]
     c = chans.l.shape[0]
+    nch = 2 if stereo_params is not None else 1
     if reset is not None:
-        masks = {"chan": reset == 1, "dc": reset == 1, "agc": reset >= 1}
+        full = reset == 1
+        per_stream = full.repeat_interleave(nch) if nch > 1 else full
+        masks = {"chan": full, "dc": full, "agc": reset >= 1, "st": full,
+                 "rds": full, "dec": per_stream, "de": per_stream}
 
         def zero_rows(x, group):
             m = masks[group].reshape((-1,) + (1,) * (x.dim() - 1))
@@ -249,9 +348,82 @@ def audio_from_spectra(
     # (both carry state across arbitrary block boundaries)
     stream = audio_f.permute(1, 0, 2).reshape(c, b * half)
     dc_st, stream = dc_blocker(audio_state.dc, stream, dc_delay)
-    agc_st = agc_int16(audio_state.agc, stream.contiguous(), agc_params,
-                       out16)
-    return AudioState(chan=chan_st, dc=dc_st, agc=agc_st), pwr
+    if (decim_taps is None and stereo_params is None and rds_params is None
+            and deemph_a is None):
+        agc_st = agc_int16(audio_state.agc, stream.contiguous(), agc_params,
+                           out16)
+        return audio_state._replace(chan=chan_st, dc=dc_st, agc=agc_st), pwr
+
+    agc_st, stream = agc_float(audio_state.agc, stream.contiguous(),
+                               agc_params)
+    fm_mask = chans.mode == MODE_FM
+    rds_st, st_st = audio_state.rds, audio_state.st
+    stereo_done = False
+    if rds_params is not None:
+        # the RDS tap: the post-AGC MPX, the stream the reference ships
+        # to the browser's decoder.  Only active FM rows that sent
+        # {"cmd":"rds"} produce baseband; with no such row the stage is
+        # skipped and its carries go stale (the JAX package's lax.cond).
+        rds_on = chans.active & chans.rds & fm_mask
+        if stereo_params is not None:
+            # shared pilot: the 19 kHz pilot is bandpassed and tracked
+            # once, and K-PILOT forms the stereo demix (against stereo's
+            # own mono delay line) and the 57 kHz downmix from the same
+            # phase.  make_rds_params reuses make_stereo_params, so the
+            # stereo state mirrors the RDS state's pilot carries.
+            new_bp, y = pilot_bandpass(rds_st.bp_tail, rds_params.bp_taps,
+                                       stream)
+            new_mpx, xd = delay_stream(rds_st.mpx_tail, stream)
+            new_mono, xm = delay_stream(st_st.mono_tail, stream)
+            phase, freq, _, stream, iq = pilot_mix(
+                rds_st.phase, rds_st.freq, rds_params.f_nom, y, xs=xm,
+                fm_mask=fm_mask, xr=xd if chans.need_rds else None)
+            dec_tail = rds_st.dec_tail
+            if chans.need_rds:
+                dec_tail, q = rds_baseband(dec_tail, rds_params, iq, rds_on)
+                rds_out.copy_(q)
+            else:
+                rds_out.zero_()
+            rds_st = RDSState(bp_tail=new_bp, mpx_tail=new_mpx, phase=phase,
+                              freq=freq, dec_tail=dec_tail)
+            st_st = StereoState(bp_tail=new_bp, mono_tail=new_mono,
+                                phase=phase, freq=freq)
+            stereo_done = True
+        elif chans.need_rds:
+            rds_st, q = rds_process(rds_st, rds_params, stream, rds_on)
+            rds_out.copy_(q)
+        else:
+            rds_out.zero_()
+    if stereo_params is not None and not stereo_done:
+        # FM rows get pilot-PLL stereo; other modes pass mono to both ears
+        st_st, stream = stereo_decode(st_st, stereo_params, stream, fm_mask)
+
+    de_st = audio_state.de
+    if deemph_a is not None:
+        # after the RDS tap and the stereo demix (the subcarriers must
+        # not see the pole), before decimation, on the per-stream rows
+        fm_rows = chans.active & fm_mask
+        if nch > 1:
+            fm_rows = fm_rows.repeat_interleave(nch)
+        de_st, stream = deemph_process(de_st, deemph_a, stream, fm_rows)
+    dec_st = audio_state.dec
+    if decim_taps is not None:
+        # device Opus decimation (the reference clamps the Opus rate
+        # without resampling, src/audio.cpp:59); the per-hop framing is
+        # gone, as Opus frames span hops anyway
+        dec_st, out = polyphase_decimate(dec_st, stream, decim_taps,
+                                         cfg.opus_decim)
+        if nch > 1:  # [2C, T/f] -> [C, 2*T/f] interleaved L/R
+            t2 = out.shape[-1]
+            out = out.reshape(c, 2, t2).transpose(1, 2).reshape(c, 2 * t2)
+    elif nch > 1:  # [2C, B*half] -> [B, C, 2*half] interleaved L/R per hop
+        out = (stream.reshape(c, 2, b, half).permute(2, 0, 3, 1)
+               .reshape(b, c, 2 * half))
+    else:
+        out = stream.reshape(c, b, half).permute(1, 0, 2)
+    out16.copy_(float_to_int16(out))
+    return AudioState(chan=chan_st, dc=dc_st, agc=agc_st, dec=dec_st,
+                      st=st_st, rds=rds_st, de=de_st), pwr
 
 
 class HopPipeline:
@@ -278,6 +450,21 @@ class HopPipeline:
         self.due_cap = waterfall_due_cap(cfg)
         self.pyramid_width = pyramid_width(cfg.fft_result_size,
                                            cfg.downsample_levels)
+        self.decim_taps = opus_decim_taps(cfg)
+        self.decim = cfg.opus_decim if self.decim_taps is not None else 1
+        self.stereo_params = stereo_params_for(cfg)
+        self.rds_params = rds_params_for(cfg)
+        self.deemph_a = deemph_alpha_for(cfg)
+        # RDS baseband samples per channel per step (0 when off)
+        self.rds_t = (cfg.hop_batch * (cfg.audio_fft_size // 2)
+                      // self.rds_params.decim
+                      if self.rds_params is not None else 0)
+        if (self.stereo_params is not None
+                and cfg.hop_batch * (cfg.audio_fft_size // 2)
+                < self.stereo_params.delay):
+            raise ValueError(
+                "stereo: per-step audio block shorter than the pilot "
+                "bandpass group delay; raise hop_batch")
         self._all_rows = torch.arange(cfg.hop_batch, dtype=torch.int32,
                                       device=self.device)
 
@@ -299,7 +486,8 @@ class HopPipeline:
 
     def resize_channel_rows(self, state: HopState, k: int) -> HopState:
         """Slice (shrink) or zero-pad (grow) every per-channel carry to
-        k rows.
+        k rows (k * nch for the per-stream decimator and de-emphasis
+        rows).
 
         The state half of active-channel bucketing: the driver runs the
         step at the smallest configured bucket >= the highest active
@@ -307,10 +495,13 @@ class HopPipeline:
         shrink belong to inactive slots, and a reused slot is re-zeroed
         by the registry's one-shot RESET_FULL mask, so zero-padding on
         regrow is exact."""
-        def conv(x, _group):
-            if x.shape[0] >= k:
-                return x[:k]
-            pad = torch.zeros((k - x.shape[0],) + tuple(x.shape[1:]),
+        nch = self.cfg.audio_channels
+
+        def conv(x, group):
+            kk = k * nch if group in PER_STREAM else k
+            if x.shape[0] >= kk:
+                return x[:kk]
+            pad = torch.zeros((kk - x.shape[0],) + tuple(x.shape[1:]),
                               dtype=x.dtype, device=x.device)
             return torch.cat([x, pad])
         return HopState(frame=state.frame, audio=map_rows(conv, state.audio))
@@ -351,8 +542,9 @@ class HopPipeline:
             views = self.empty_views()
         w = views.start.shape[0]
         d = self.due_cap if waterfall == "views" else 0
-        packed, audio16, pwr_out, wf = alloc_packed(
-            b, c, half, d, w, self.view_cap, self.device)
+        packed, audio16, pwr_out, wf, rds8 = alloc_packed(
+            b, c, half, d, w, self.view_cap, self.device, self.decim,
+            cfg.audio_channels, self.rds_t)
 
         spec = spectra_from_raw(cfg, self.window, raw, b)
         pyr = torch.zeros((b, 0), dtype=torch.int8, device=self.device)
@@ -368,25 +560,33 @@ class HopPipeline:
 
         audio_st, pwr = audio_from_spectra(
             cfg, self.agc_params, self.dc_delay, state.audio, spec, chans,
-            state.frame, reset, audio16)
+            state.frame, reset, audio16, rds8, decim_taps=self.decim_taps,
+            stereo_params=self.stereo_params, rds_params=self.rds_params,
+            deemph_a=self.deemph_a)
         pwr_out.copy_(pwr)
         return (HopState(frame=state.frame + b, audio=audio_st),
                 HopOutputs(audio=audio16, avg_power=pwr_out, wf=wf,
-                           pyramid=pyr, packed=packed))
+                           pyramid=pyr, rds=rds8, packed=packed))
 
 
-def channels_from_numpy(l, r, m_idx, mode, active, am_env=None,
+def channels_from_numpy(l, r, m_idx, mode, active, am_env=None, rds=None,
                         device="cpu") -> ChannelTable:
     """Host-side helper: build a device ChannelTable from numpy arrays
-    (and decide on the host whether the AM PLL stage must run)."""
+    (and decide on the host whether the AM PLL and RDS stages must
+    run)."""
     am_env = np.zeros(np.shape(l), bool) if am_env is None else am_env
-    need_pll = bool(np.any(np.asarray(active, bool)
-                           & (np.asarray(mode) == MODE_AM)
+    rds = np.zeros(np.shape(l), bool) if rds is None else rds
+    active_np = np.asarray(active, bool)
+    mode_np = np.asarray(mode)
+    need_pll = bool(np.any(active_np & (mode_np == MODE_AM)
                            & ~np.asarray(am_env, bool)))
+    need_rds = bool(np.any(active_np & (mode_np == MODE_FM)
+                           & np.asarray(rds, bool)))
     i32, b8 = torch.int32, torch.bool
     return ChannelTable(
         l=to_device(l, i32, device), r=to_device(r, i32, device),
         m_idx=to_device(m_idx, i32, device),
         mode=to_device(mode, i32, device),
         active=to_device(active, b8, device),
-        am_env=to_device(am_env, b8, device), need_pll=need_pll)
+        am_env=to_device(am_env, b8, device), rds=to_device(rds, b8, device),
+        need_pll=need_pll, need_rds=need_rds)

@@ -251,6 +251,7 @@ class DSPDriver:
             rows = arrays if k is None else tuple(a[:k] for a in arrays)
             # registry columns: l, r, m_idx, mode, active, nr, rds, am_env
             self._table = channels_from_numpy(*rows[:5], am_env=rows[7],
+                                              rds=rows[6],
                                               device=self.device)
             self._table_key = (v, k)
         if self._np_views is not None:
@@ -342,15 +343,16 @@ class DSPDriver:
             # (channel, view-table) widths the step actually RAN with
             k, w = kw
             d = self.pipe.due_cap if due is not None else 0
-            audio, pwr, wf = unpack_outputs(
+            audio, pwr, wf, rds = unpack_outputs(
                 packed, cfg.hop_batch, k, cfg.audio_fft_size // 2, d, w,
-                self.pipe.view_cap)
+                self.pipe.view_cap, decim=self.pipe.decim,
+                nch=cfg.audio_channels, rds_t=self.pipe.rds_t)
             self.metrics.step_seconds.append(time.monotonic() - t0)
             try:
                 self.consumer(frame0, audio, pwr,
                               wf if due is not None else None,
                               due if due is not None else [],
-                              wf_meta, audio_meta, None)
+                              wf_meta, audio_meta, rds)
             except Exception:
                 import traceback
 

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card,
 at shapes the main path does not reach (a pyramid deeper than one
 chunk, rows narrower than a chunk, other rolls, misaligned input and
-output rows, real input, an AGC window too large for shared memory).  They need a CUDA device and skip elsewhere; run them
-on the card with
+output rows, real input, an AGC window too large for shared memory;
+the WBFM kernels at odd lengths and with masked rows).  They need a
+CUDA device and skip elsewhere; run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -14,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from phantomsdr_tpu_torch.ops.agc import AGCState, make_agc_params
-from phantomsdr_tpu_torch.ops.cuda import agc, pll, waterfall
+from phantomsdr_tpu_torch.ops.agc import AGCState, agc_process, make_agc_params
+from phantomsdr_tpu_torch.ops.channelizer import float_to_int16
+from phantomsdr_tpu_torch.ops.cuda import agc, deemph, pilot, pll, waterfall
+from phantomsdr_tpu_torch.ops.deemph import deemph_alpha
+from phantomsdr_tpu_torch.ops.polyphase import design_lowpass, fir
+from phantomsdr_tpu_torch.ops.stereo import make_stereo_params
 
 pytestmark = pytest.mark.cuda
 
@@ -201,3 +206,164 @@ def test_kernel_wrapper_rejects_wrong_index_dtype(dev):
     with pytest.raises(ValueError, match="int32"):
         waterfall.waterfall_rows(spec, rows, fft_result_size=64, base_idx=0,
                                  levels=2, size_log2=6)
+
+
+def mpx_rows(c, n, dev, seed):
+    """[C, n] FM multiplex-like rows (pilot, DSB, noise) at other levels,
+    and a pilot bandpassed from them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.arange(n, device=dev, dtype=torch.float32) / 192000
+    th = 2 * np.pi * 19000.0 * t + torch.rand(c, 1, device=dev, generator=g)
+    x = (0.3 * torch.sin(2 * np.pi * 800 * t) + 0.09 * torch.cos(th)
+         + 0.2 * torch.sin(2 * np.pi * 1300 * t) * torch.cos(2 * th)
+         + 0.02 * torch.randn(c, n, device=dev, generator=g))
+    x = x * (1 + torch.arange(c, device=dev)[:, None] % 3)
+    p = make_stereo_params(192000)
+    y = fir(torch.cat([torch.zeros(c, p.taps.shape[0] - 1, device=dev), x],
+                      1), p.taps)
+    return x.contiguous(), y.contiguous(), p.f_nom
+
+
+@pytest.mark.parametrize("c,n,mixes", [
+    (5, 3001, "both"), (4, 40272, "stereo"), (3, 32768, "rds"),
+    # past one chain launch's 32768 samples, odd; short rows
+    (3, 33771, "both"), (7, 5, "both"), (2, 1000, "none"),
+])
+def test_pilot_kernel_matches_plain(dev, c, n, mixes):
+    """Over two calls that carry phase and freq: ph, L/R and I/Q within
+    1e-5 * max|x| (the K-PLL bound: only sin/cos may round otherwise),
+    carries equal; FM-masked rows pass mono."""
+    x, y, f_nom = mpx_rows(c, 2 * n, dev, n)
+    fm = torch.arange(c, device=dev) % 3 != 1
+    tol = 1e-5 * float(x.abs().max())
+    kc = pc = (torch.zeros(c, device=dev), torch.zeros(c, device=dev))
+    for k in range(2):
+        xs, ys = x[:, k * n:(k + 1) * n].contiguous(), y[:, k * n:(k + 1) * n].contiguous()
+        kw = dict(xs=xs if mixes in ("both", "stereo") else None,
+                  fm_mask=fm, xr=xs if mixes in ("both", "rds") else None)
+        before = pilot.KERNEL.launches
+        got = pilot.pilot_mix(*kc, f_nom, ys, **kw)
+        want = pilot.pilot_mix_plain(*pc, f_nom, ys, **kw)
+        assert pilot.KERNEL.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert float((got[2] - want[2]).abs().max()) <= tol
+        for g_, w_ in zip(got[3:], want[3:]):
+            assert (g_ is None) == (w_ is None)
+            if g_ is not None:
+                assert g_.shape == (2 * c, n)
+                assert float((g_ - w_).abs().max()) <= tol
+        if got[3] is not None:
+            mono = ~fm
+            assert torch.equal(got[3][0::2][mono], xs[mono])
+            assert torch.equal(got[3][1::2][mono], xs[mono])
+        kc, pc = got[:2], want[:2]
+
+
+@pytest.mark.parametrize("n", [1001, 40272])
+def test_pilot_chain_probe_runs_the_kernels_loop(dev, n):
+    """On a pilot that repeats four samples (L % 4 <= 1, as the probe's
+    tail reuses the first), the probe and the kernel end on the same
+    phase and frequency bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    c = 5
+    four = torch.randn(c, 4, device=dev, generator=g) * 0.1
+    y = four.repeat(1, -(-n // 4))[:, :n].contiguous()
+    p0 = torch.rand(c, device=dev, generator=g) * 6
+    f0 = torch.zeros(c, device=dev)
+    f_nom = make_stereo_params(192000).f_nom
+    phase, freq = pilot.chain_probe(y, p0, f0, f_nom)
+    k_phase, k_freq, _, _, _ = pilot.pilot_mix(p0, f0, f_nom, y)
+    assert torch.equal(phase, k_phase) and torch.equal(freq, k_freq)
+
+
+@pytest.mark.parametrize("rows,n", [(256, 40272), (6, 8192), (6, 8193),
+                                    (5, 31), (3, 100000), (4, 1)])
+def test_deemph_kernel_matches_plain(dev, rows, n):
+    """Over two calls that carry y[-1]: |diff| <= 2e-5 * max|x| (the
+    chunk carries round otherwise, tests/test_deemph.py's bound); masked
+    rows pass through bit for bit with their carry kept."""
+    g = torch.Generator(device=dev).manual_seed(rows * n)
+    a = deemph_alpha(192000, 75.0)
+    x = torch.randn(rows, 2 * n, device=dev, generator=g) * 3
+    mask = torch.arange(rows, device=dev) % 4 != 2
+    tol = 2e-5 * float(x.abs().max())
+    ky = py = torch.randn(rows, device=dev, generator=g)
+    for k in range(2):
+        xs = x[:, k * n:(k + 1) * n].contiguous()
+        before = deemph.KERNEL.launches
+        got_c, got = deemph.deemph_process(ky, a, xs, mask)
+        want_c, want = deemph.deemph_process_plain(py, a, xs, mask)
+        assert deemph.KERNEL.launches == before + 1
+        assert float((got - want).abs().max()) <= tol
+        assert float((got_c - want_c).abs().max()) <= tol
+        assert torch.equal(got[~mask], xs[~mask])
+        assert torch.equal(got_c[~mask], ky[~mask])
+        ky, py = got_c, want_c
+
+
+@pytest.mark.parametrize("sr,n", [(192000, 40272), (192000, 1001),
+                                  (12000, 6480), (12000, 1539)])
+def test_agc_float_kernel_matches_plain(dev, sr, n):
+    """K-AGC's float mode against agc_process (rtol 1e-6, as
+    tests/test_torch_agc.py), across warm-up states; 192000: the window
+    (38,400) takes the device scratch path."""
+    g = torch.Generator(device=dev).manual_seed(sr + n)
+    params = make_agc_params(sr)
+    w = params.window
+    c = 8
+    x = torch.randn(c, n, device=dev, generator=g) * 0.05
+    x[:, ::41] *= 9
+    state = AGCState(
+        tail=torch.randn(c, w - 1, device=dev, generator=g) * 0.05,
+        gain=torch.rand(c, device=dev, generator=g) * 4,
+        seen=torch.tensor([0, 1, w // 3, w - 2, w - 1, w, w, 0],
+                          dtype=torch.int32, device=dev))
+    before = agc.FLOAT_KERNEL.launches
+    st_k, y_k = agc.agc_float(state, x, params)
+    st_p, y_p = agc_process(state, x, params)
+    assert agc.FLOAT_KERNEL.launches == before + 1
+    torch.testing.assert_close(y_k, y_p, rtol=1e-6, atol=1e-7)
+    assert torch.equal(st_k.tail, st_p.tail)
+    assert torch.equal(st_k.seen, st_p.seen)
+    torch.testing.assert_close(st_k.gain, st_p.gain, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("sr,b,half", [(12000, 36, 180), (192000, 8, 5034)])
+def test_agc_int16_is_the_float_mode_rounded(dev, sr, b, half):
+    """The default int16 output is the float mode's output through
+    float_to_int16, bit for bit: one chain, two ways to store it."""
+    g = torch.Generator(device=dev).manual_seed(b)
+    params = make_agc_params(sr)
+    w = params.window
+    c = 4
+    x = torch.randn(c, b * half, device=dev, generator=g) * 0.05
+    state = AGCState(tail=torch.randn(c, w - 1, device=dev, generator=g),
+                     gain=torch.rand(c, device=dev, generator=g),
+                     seen=torch.tensor([0, w // 2, w, w], dtype=torch.int32,
+                                       device=dev))
+    out = torch.empty(b, c, half, dtype=torch.int16, device=dev)
+    st16 = agc.agc_int16(state, x, params, out)
+    stf, y = agc.agc_float(state, x, params)
+    assert torch.equal(out, float_to_int16(y).reshape(c, b, half)
+                       .permute(1, 0, 2))
+    assert torch.equal(st16.gain, stf.gain)
+
+
+def test_fir_on_the_card_is_full_float32(dev):
+    """The pilot bandpass through conv1d on the card against float64
+    numpy within 1e-6 of the output's scale: cuDNN's TF32 (a 10-bit
+    mantissa) is off."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    taps = make_stereo_params(192000).taps
+    x = torch.randn(64, 20000, device=dev, generator=g)
+    got = fir(x, taps).cpu().numpy().astype(np.float64)
+    xn = x.cpu().numpy().astype(np.float64)
+    want = np.stack([np.convolve(r, taps.astype(np.float64), "valid")
+                     for r in xn])
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < 1e-6, err
+    lp = design_lowpass(397, 2 * 3200 / 192000)
+    got = fir(x, lp, 32).cpu().numpy().astype(np.float64)
+    want = np.stack([np.convolve(r, lp.astype(np.float64), "valid")[::32]
+                     for r in xn])
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-6

@@ -6,6 +6,12 @@ JAX (``interop``), on CPU.  Sizes are ``__graft_entry__._small_cfg``'s
 
 Tolerances: int16 audio within 4 LSB (tests/test_pipeline.py), channel
 power rtol 2e-4, waterfall at most one int8 step on < 0.1% of bins.
+
+The WBFM broadcast path (stereo + RDS + de-emphasis 75 us + Opus
+decimation) at 1.536 MSPS, FFT 32768, 192 kHz audio, 4 channels: the
+decimated interleaved int16 within 4 LSB, the RDS int8 baseband within
+one step on < 0.1% of samples (tests/test_torch_rds.py), with resets and
+resizes of the per-stream rows.
 """
 
 import jax
@@ -235,10 +241,11 @@ def test_packed_buffer_round_trips_through_unpack(iq):
     ts, out = iq.tp.step(ts, torch.from_numpy(stream.next()), tt, iq.tviews,
                          "views")
     cfg = iq.tc
-    audio, pwr, wf = unpack_outputs(
+    audio, pwr, wf, rds = unpack_outputs(
         out.packed.numpy(), cfg.hop_batch, cfg.max_channels,
         cfg.audio_fft_size // 2, iq.tp.due_cap, iq.tviews.start.shape[0],
         iq.tp.view_cap)
+    assert rds is None and out.rds.shape == (cfg.max_channels, 2, 0)
     np.testing.assert_array_equal(audio, out.audio.numpy())
     np.testing.assert_array_equal(pwr, out.avg_power.numpy())
     np.testing.assert_array_equal(wf, out.wf.numpy())
@@ -264,3 +271,163 @@ def test_interop_round_trip(iq):
                                   np.asarray(iq.jviews.start))
     with pytest.raises(TypeError):
         interop.state_from_numpy((1, 2))
+
+
+# ------------------------------------------------------- WBFM broadcast
+
+def wbfm_dict():
+    return {
+        "input": {"sps": 1_536_000, "frequency": 98_000_000,
+                  "fft_size": 32768, "signal": "iq", "audio_sps": 192000,
+                  "waterfall_size": 512, "stereo": True, "rds": True,
+                  "deemphasis": 75, "audio_compression": "opus",
+                  "driver": {"format": "s16"}},
+        "tpu": {"hop_batch": 4, "max_channels": 4},
+    }
+
+
+class WbfmStream:
+    """s16 IQ: tests/test_rds.py's MPX (stereo tones, pilot, RDS)
+    FM-modulated at 75 kHz deviation on the centre of the band (8x
+    staircase upsample), plus noise, cut into halo'd blocks."""
+
+    def __init__(self, cfg, blocks):
+        from tests.test_rds import _mpx
+
+        wph = cfg.hop_size * 2
+        blk = cfg.hop_batch * wph
+        n = (blocks * blk + wph) // 2
+        up = cfg.sps // cfg.audio_sps
+        mpx = np.repeat(_mpx(n // up + 1, fs=cfg.audio_sps), up)[:n]
+        ph = 2 * np.pi * np.cumsum(75000.0 * mpx) / cfg.sps
+        rng = np.random.default_rng(11)
+        iq = 0.5 * np.exp(1j * ph) + 0.01 * rng.standard_normal(n)
+        s = np.empty(2 * n, np.int16)
+        s[0::2] = np.round(iq.real * 32000)
+        s[1::2] = np.round(iq.imag * 32000)
+        self.blocks = [s[k * blk:(k + 1) * blk + wph] for k in range(blocks)]
+
+
+class WbfmPair:
+    def __init__(self):
+        self.jc = jconfig(wbfm_dict())
+        self.tc = config_from_dict(wbfm_dict())
+        self.jp = JPipeline(self.jc)
+        self.tp = HopPipeline(self.tc, device="cpu")
+        self.stream = WbfmStream(self.jc, 4)
+
+    def tables(self, k=4):
+        mid = self.jc.fft_result_size // 2
+        half = self.jc.audio_fft_size // 2
+        arrays = dict(l=np.full(4, mid - half // 2, np.int32),
+                      r=np.full(4, mid + half // 2, np.int32),
+                      m_idx=np.full(4, mid, np.int32),
+                      mode=np.array([3, 3, 0, 3], np.int32),
+                      active=np.array([True, True, True, False]),
+                      rds=np.array([True, False, False, True]))
+        arrays = {key: v[:k] for key, v in arrays.items()}
+        return jtable(**arrays), channels_from_numpy(**arrays)
+
+    def warm_states(self):
+        """JAX's fresh state with the AGC past its look-ahead (seen =
+        window, unit gain, and a look-ahead tail of discriminator output
+        of the MPX, which the next 38,399 samples of output come from),
+        and the same state in the port."""
+        from tests.test_rds import _mpx
+
+        js = self.jp.init_state()
+        agc = js.audio.agc
+        w = self.jp.agc_params.window
+        fm = 2 * np.pi * 75000.0 / self.jc.audio_sps * _mpx(
+            w - 1, fs=self.jc.audio_sps)
+        js = js._replace(audio=js.audio._replace(agc=agc._replace(
+            tail=jnp.broadcast_to(jnp.asarray(fm, jnp.float32),
+                                  agc.tail.shape),
+            seen=jnp.full_like(agc.seen, w),
+            gain=jnp.ones_like(agc.gain))))
+        return js, interop.state_from_numpy(jax.tree.map(np.asarray, js))
+
+    def step(self, js, ts, raw, k=4, reset=None):
+        jt, tt = self.tables(k)
+        jr = tr = None
+        if reset is not None:
+            jr, tr = jnp.asarray(reset), torch.from_numpy(reset)
+        js, jo = self.jp.step(js, jnp.asarray(raw), jt, waterfall="off",
+                              reset=jr)
+        ts, to = self.tp.step(ts, torch.from_numpy(raw), tt,
+                              waterfall="off", reset=tr)
+        ja, ta = np.asarray(jo.audio).astype(int), to.audio.numpy().astype(int)
+        assert ta.shape == ja.shape == (k, 2 * self.jc.hop_batch
+                                        * self.jc.audio_fft_size // 2 // 4)
+        assert np.abs(ta - ja).max() <= 4
+        jq, tq = np.asarray(jo.rds).astype(int), to.rds.numpy().astype(int)
+        assert tq.shape == jq.shape == (k, 2, self.tp.rds_t)
+        d = np.abs(tq - jq)
+        assert d.max() <= 1 and (d > 0).mean() < 1e-3
+        np.testing.assert_allclose(to.avg_power.numpy(),
+                                   np.asarray(jo.avg_power), rtol=2e-4,
+                                   atol=1e-12)
+        return js, ts, to
+
+
+@pytest.fixture(scope="module")
+def wbfm():
+    return WbfmPair()
+
+
+def test_wbfm_steps_match_jax(wbfm):
+    """Three steps of the whole WBFM path from a warm AGC; the shared
+    pilot's stereo carries mirror the RDS ones."""
+    js, ts = wbfm.warm_states()
+    for raw in wbfm.stream.blocks[:3]:
+        js, ts, out = wbfm.step(js, ts, raw)
+    audio = out.audio.numpy()
+    assert np.abs(audio[0]).max() > 1000          # real audio
+    assert out.rds[0].any() and not out.rds[1:].any()
+    a = ts.audio
+    assert torch.equal(a.st.phase, a.rds.phase)
+    assert torch.equal(a.st.freq, a.rds.freq)
+    assert torch.equal(a.st.bp_tail, a.rds.bp_tail)
+    got = interop.state_to_numpy(ts).audio
+    for part in ("dec", "st", "rds"):
+        for name in getattr(got, part)._fields:
+            np.testing.assert_allclose(
+                getattr(getattr(got, part), name),
+                np.asarray(getattr(getattr(js.audio, part), name)),
+                rtol=1e-3, atol=1e-3, err_msg=f"{part}.{name}")
+    np.testing.assert_allclose(got.de, np.asarray(js.audio.de), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_wbfm_reset_and_resize_match_jax(wbfm):
+    """A full reset of channel 1 zeroes its per-stream decimator and
+    de-emphasis rows (2 and 3); a shrink to 2 channels and a grow back
+    to 4 keep 2k of those rows, as in JAX."""
+    js, ts = wbfm.warm_states()
+    js, ts, _ = wbfm.step(js, ts, wbfm.stream.blocks[0])
+    reset = np.array([0, 1, 0, 0], np.int32)
+    js, ts, _ = wbfm.step(js, ts, wbfm.stream.blocks[1], reset=reset)
+    for k, raw in ((2, wbfm.stream.blocks[2]), (4, wbfm.stream.blocks[3])):
+        js = wbfm.jp.resize_channel_rows(js, k)
+        ts = wbfm.tp.resize_channel_rows(ts, k)
+        assert ts.audio.dec.tail.shape[0] == ts.audio.de.shape[0] == 2 * k
+        assert ts.audio.st.phase.shape[0] == k
+        js, ts, _ = wbfm.step(js, ts, raw, k=k)
+
+
+def test_wbfm_interop_round_trip(wbfm):
+    js, _ = wbfm.warm_states()
+    jt, _ = wbfm.tables()
+    js, _ = wbfm.jp.step(js, jnp.asarray(wbfm.stream.blocks[0]), jt,
+                         waterfall="off")
+    state = jax.tree.map(np.asarray, js)
+    back = interop.state_to_numpy(interop.state_from_numpy(state)).audio
+    for part in ("dec", "st", "rds"):
+        for name in getattr(back, part)._fields:
+            np.testing.assert_array_equal(
+                getattr(getattr(back, part), name),
+                getattr(getattr(state.audio, part), name))
+    np.testing.assert_array_equal(back.de, state.audio.de)
+    table = interop.state_from_numpy(jax.tree.map(np.asarray, jt))
+    assert table.need_rds and not table.need_pll
+    np.testing.assert_array_equal(table.rds.numpy(), np.asarray(jt.rds))

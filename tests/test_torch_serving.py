@@ -1,14 +1,16 @@
 """The PyTorch port served end to end on CPU: main.build -> DSPDriver ->
 SpectrumServer, driven by a websocket client that decodes the FLAC
 audio of an AM tone capture (the flow of tools/verify/client.py's tone
-check); plus the package's import boundary, its device default and the
-config-time rejection of the stages it does not implement yet."""
+check); plus the package's import boundary, its device default, the
+config-time rejection of the stages it does not implement yet and the
+validations of the WBFM options it does."""
 
 import asyncio
 import io
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -130,20 +132,94 @@ def test_pipeline_defaults_to_cuda():
     assert HopPipeline(cfg, device="cpu").device.type == "cpu"
 
 
+WIDEBAND = {"sps": 20_000_000, "fft_size": 1 << 20, "audio_sps": 192000,
+            "driver": {"format": "u8"}}
+
+
 @pytest.mark.parametrize("extra,what", [
-    ({"stereo": True, "audio_sps": 192000}, "stereo"),
-    ({"nr": True}, "nr"),
-    ({"rds": True, "audio_sps": 192000}, "rds"),
-    ({"deemphasis": 75}, "deemphasis"),
-    ({"audio_compression": "opus", "audio_sps": 96000}, "Opus decimation"),
-    ({"waterfall_compression": "av1"}, "av1"),
+    # the JAX package's validations of the WBFM options
+    pytest.param({"stereo": True}, "stereo=true needs audio_sps",
+                 id="extra0-stereo"),
+    pytest.param({"nr": True}, "nr", id="extra1-nr"),
+    # the wideband profile's audio block (5,034) allows only /2: 96 kS/s
+    # of RDS baseband, over MAX_BASEBAND_SPS
+    pytest.param({**WIDEBAND, "rds": True}, "rds=true.*decimation by 2",
+                 id="extra2-rds"),
+    pytest.param({"deemphasis": 2000}, "deemphasis must be 0..1000",
+                 id="extra3-deemphasis"),
+    # no integer decimation reaches a legal Opus rate
+    pytest.param({"audio_compression": "opus", "audio_sps": 44100},
+                 "cannot feed Opus", id="extra4-Opus decimation"),
+    pytest.param({"waterfall_compression": "av1"}, "av1", id="extra5-av1"),
+    pytest.param({"nr": True, "stereo": True, "audio_sps": 192000},
+                 "cannot be combined", id="extra6-nr+stereo"),
 ])
 def test_unported_stages_are_rejected_at_config_time(extra, what):
+    """Options still to port (nr, av1) and invalid settings of the
+    ported WBFM options are refused when the config loads."""
     with pytest.raises(ValueError, match=what):
         tone_config(**extra)
+
+
+@pytest.mark.parametrize("profile", ["wideband", "soak"])
+def test_wbfm_profiles_load(profile):
+    """The wideband profile with stereo, de-emphasis and Opus (device
+    decimation /4), and the tools/verify soak profile with stereo, RDS
+    and de-emphasis."""
+    if profile == "wideband":
+        cfg = tone_config(**WIDEBAND, stereo=True, deemphasis=75,
+                          audio_compression="opus")
+        assert cfg.device_decim and cfg.opus_decim == 4
+        assert cfg.audio_fft_size == 10068
+    else:
+        cfg = tone_config(sps=1_536_000, fft_size=131072, audio_sps=192000,
+                          stereo=True, rds=True, deemphasis=75)
+        assert cfg.audio_fft_size == 16384
+    assert cfg.audio_channels == 2
 
 
 def test_mesh_mode_is_rejected_at_config_time():
     with pytest.raises(ValueError, match="mesh_devices"):
         config_from_dict({"input": {"sps": SPS, "fft_size": FFT},
                           "tpu": {"mesh_devices": 4}})
+
+
+def test_driver_delivers_wbfm_layout_and_rds():
+    """DSPDriver at a small WBFM config (stereo + RDS + de-emphasis +
+    Opus decimation) hands the consumer each step's decimated,
+    interleaved audio [C, 2*B*half/4] and the RDS block [C, 2, rds_t],
+    zero for a listener without the opt-in."""
+    from phantomsdr_tpu_torch.runtime.driver import DSPDriver, SampleSource
+    from phantomsdr_tpu_torch.runtime.registry import ChannelRegistry
+
+    cfg = config_from_dict({
+        "input": {"sps": 1_536_000, "frequency": 98_000_000,
+                  "fft_size": 8192, "signal": "iq", "audio_sps": 192000,
+                  "stereo": True, "rds": True, "deemphasis": 75,
+                  "audio_compression": "opus", "driver": {"format": "s16"}},
+        "tpu": {"hop_batch": 16, "max_channels": 2, "channel_bucket": 0}})
+    blocks = 2
+    raw = np.random.default_rng(5).integers(
+        -3000, 3000, blocks * cfg.hop_batch * cfg.hop_size * 2,
+        dtype=np.int16).tobytes()
+    channels = ChannelRegistry(cfg)
+    mid, half = cfg.fft_result_size // 2, cfg.audio_fft_size // 2
+    for i, rds in enumerate((True, False)):
+        slot = channels.acquire(f"l{i}")
+        channels.retune(slot, mid - half // 2, float(mid), mid + half // 2)
+        channels.set_mode(slot, "FM")
+        channels.set_rds(slot, rds)
+    got = []
+    driver = DSPDriver(cfg, SampleSource(cfg, io.BytesIO(raw)), channels,
+                       lambda *a: got.append(a),
+                       waterfall_active=lambda: False, device="cpu")
+    driver.start()
+    t0 = time.monotonic()
+    while len(got) < blocks and time.monotonic() - t0 < 120:
+        time.sleep(0.1)
+    driver.stop()
+    assert len(got) == blocks and driver.metrics.device_errors == 0
+    for (frame0, audio, pwr, wf, due, wf_meta, audio_meta, rds) in got:
+        assert audio.shape == (2, 2 * cfg.hop_batch * half // 4)
+        assert rds.shape == (2, 2, driver.pipe.rds_t) and not rds[1].any()
+        assert wf is None and np.isfinite(pwr).all()
