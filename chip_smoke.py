@@ -25,10 +25,15 @@ Phases, one JSON line each (any failure exits non-zero):
              one recorded launch and profiler_records how many launches
              it recorded (it loses some of the port's)
              K-PILOT, K-DEEMPH and K-AGC's float mode at the shapes of
-             the wideband WBFM step (128 channels x 40,272 samples)
+             the wideband WBFM step (128 channels x 40,272 samples);
+             K-NR, K-ANR and K-NB at the shapes of the bench config
+             with [input] nr (128 channels x 36 frames x 180 samples),
+             over two calls that carry their state, K-NB's line with
+             the impulses per channel and the threshold margins
 4. small     the whole step on the card against the whole step on the
              CPU (plain versions) at a small config; small_wbfm the same
-             with stereo + RDS + de-emphasis + Opus decimation
+             with stereo + RDS + de-emphasis + Opus decimation; small_nr
+             the same with nr = true for each nr_algo
 5. main      HopPipeline.step at full width: 10 'views' steps and 2
              'off' steps over a synthetic capture with one tone per
              demodulation mode; the tones must come out at their Hz,
@@ -38,6 +43,12 @@ Phases, one JSON line each (any failure exits non-zero):
 7. server    the CLI's build() served on localhost; websocket clients
              on /audio and /waterfall must receive packets (skipped
              only when aiohttp is not installed)
+7b. nr       the bench config with nr = true for each nr_algo
+             (spectral, lms, notch, nb), every listener opted in, 10
+             'views' steps with the nr column off and then on: each
+             processor judged on its listener as tools/verify judges it
+             (noise floor, LMS SNR gain, notch depth, click count), step
+             time, profiler split, device-busy share
 8. wbfm      the wideband profile (20 MSPS, 2^20 FFT, 192 kHz audio, 128
              WBFM channels over four synthetic stereo stations) with
              stereo, de-emphasis and Opus decimation: 10 steps; each ear
@@ -467,11 +478,12 @@ def tone_amp(x: np.ndarray, f: float, rate: float) -> float:
 
 def split_device_us(fn, calls: int = 2) -> dict:
     """torch.profiler's device microseconds per fn() call, summed by the
-    WBFM stages' kernels: FFTs (cuFFT), FIRs (cuDNN conv1d), K-PILOT,
-    K-DEEMPH, K-AGC, K-PLL, K-WF and everything else."""
+    stages' kernels: FFTs (cuFFT), FIRs (cuDNN conv1d), K-PILOT,
+    K-DEEMPH, K-AGC, K-PLL, K-WF, K-NR, K-ANR, K-NB and everything
+    else."""
     groups = {"fft": 0.0, "fir_conv1d": 0.0, "K-PILOT": 0.0,
               "K-DEEMPH": 0.0, "K-AGC": 0.0, "K-PLL": 0.0, "K-WF": 0.0,
-              "other": 0.0}
+              "K-NR": 0.0, "K-ANR": 0.0, "K-NB": 0.0, "other": 0.0}
     by_kernel = device_us_by_kernel(fn, calls)
     for name, us in by_kernel.items():
         low = name.lower()
@@ -487,6 +499,12 @@ def split_device_us(fn, calls: int = 2) -> dict:
             g = "K-PLL"
         elif "pyramid" in low:
             g = "K-WF"
+        elif low.startswith("nr_"):
+            g = "K-NR"
+        elif low.startswith("anr_"):
+            g = "K-ANR"
+        elif low.startswith("nb_"):
+            g = "K-NB"
         elif any(k in low for k in ("conv", "cudnn", "xmma", "gemm")):
             g = "fir_conv1d"
         else:
@@ -683,6 +701,7 @@ def phase_kernels(cfg, raw0):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         chain_note=f"{n} dependent gain steps per channel"))
     rows_out += wbfm_kernel_rows(gen)
+    rows_out += nr_kernel_rows(cfg, gen)
     for row in rows_out:
         row["bound_us"] = row["bound_ms"] * 1e3
         emit({"phase": "kernel", **printable(row)})
@@ -690,8 +709,8 @@ def phase_kernels(cfg, raw0):
 
 
 def printable(row: dict) -> dict:
-    """A kernel row without its CudaKernel object."""
-    return {k: v for k, v in row.items() if k != "kernel"}
+    """A kernel row without its CudaKernel objects."""
+    return {k: v for k, v in row.items() if k not in ("kernel", "kernels")}
 
 
 def wbfm_kernel_rows(gen):
@@ -886,12 +905,260 @@ def wbfm_kernel_rows(gen):
     return rows
 
 
+def click_rows(c: int, t: int, gen, clicks: int = 8):
+    """[C, t] int16-domain rows on the card: a 500 Hz tone (three
+    levels) in noise, and clicks 3 samples wide at random places."""
+    import torch
+
+    tt = torch.arange(t, device="cuda") / 12000.0
+    x = (3000 * torch.sin(2 * math.pi * 500 * tt)[None]
+         * (1 + torch.arange(c, device="cuda")[:, None] % 3)
+         + 250 * torch.randn(c, t, device="cuda", generator=gen))
+    rows = torch.arange(c, device="cuda")
+    for _ in range(clicks):
+        at = torch.randint(0, t - 4, (c,), device="cuda", generator=gen)
+        for k in range(3):
+            x[rows, at + k] += 20000
+    return x
+
+
+def nr_kernel_rows(cfg, gen):
+    """K-NR, K-ANR and K-NB against their plain versions at the shapes
+    the bench config with [input] nr gives them: 128 channels of 36
+    frames of 180 samples (6480 a step) in the int16 domain; each over
+    two calls that carry the state.  These kernels take microseconds,
+    less than their wrappers' host work, so their chain floors are
+    timed like kernel_ms (the host's issue hidden behind a spin)."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops import nb as nbm
+    from phantomsdr_tpu_torch.ops.anr import (
+        block_size, init_anr_state, make_anr_params,
+    )
+    from phantomsdr_tpu_torch.ops.cuda import anr, nb, nr
+    from phantomsdr_tpu_torch.ops.nr import (
+        frame_spectra, init_nr_state, make_nr_params,
+    )
+
+    c, n, f = cfg.max_channels, cfg.hop_batch, cfg.audio_fft_size // 2
+    t = n * f
+    rows = []
+
+    # ---- K-NR on the frame powers of tone-and-noise streams
+    p = make_nr_params(f)
+    tt = torch.arange(2 * t, device="cuda") / 12000.0
+    gate = (torch.arange(c, device="cuda")[:, None] % 2) * (tt > 0.3)
+    x = (6000 * torch.sin(2 * math.pi * 700 * tt)[None] * gate
+         + 1500 * torch.randn(c, 2 * t, device="cuda", generator=gen))
+    win = torch.from_numpy(p.window).to("cuda")
+    st = init_nr_state(c, f, "cuda")
+    x_pows = []
+    last = st.last_in
+    for k in range(2):
+        cur, _, xp = frame_spectra(last, win, x[:, k * t:(k + 1) * t], n)
+        x_pows.append(xp)
+        last = cur[-1]
+    carries = (st.stage, st.nest, st.xt, st.pslp, st.hk_old)
+    kc = pc = carries
+    nr_err, nr_rel = 0.0, 0.0
+    for k, xp in enumerate(x_pows):
+        kc, kg, kr = nr.gain_frames(kc, p.alpha, p.xih1r, p.pfac, xp)
+        pc, pg, pr = nr.gain_frames_plain(pc, p.alpha, p.xih1r, p.pfac, xp)
+        torch.cuda.synchronize()
+        nr_err = max(nr_err, float((kg - pg).abs().max()))
+        nr_rel = max([nr_rel] + [float(((a - b).abs() / b.abs().clamp(
+            min=1e-30)).max()) for a, b in zip((kg,) + kc[1:],
+                                              (pg,) + pc[1:])])
+        if not (torch.equal(kr, pr) and torch.equal(kc[0], pc[0])):
+            raise AssertionError(f"K-NR vs plain: running flags or stage "
+                                 f"differ after call {k + 1}")
+    if nr_rel > NR_RTOL:
+        raise AssertionError(f"K-NR vs plain: max relative diff {nr_rel} > "
+                             f"{NR_RTOL}")
+    xp = x_pows[1]
+
+    def run_nr():
+        nr.gain_frames(pc, p.alpha, p.xih1r, p.pfac, xp)
+
+    b_ms, b_by = bound_ms(2 * n * c * f * 4 + n * c + 2 * (4 * c * f * 4
+                                                           + 4 * c),
+                          n * c * f * NR_OPS_PER_BIN)
+    rows.append(dict(
+        name="K-NR spectral NR frame recursion", route="cuda",
+        source="phantomsdr_tpu_torch/csrc/nr.cu",
+        replaces="phantomsdr_tpu/ops/nr.py:249 (lax.scan over _gain_frame, "
+                 "nr.py:120-175)",
+        kernel=nr.KERNEL,
+        shape=f"x_pow [{n}, {c}, {f}] f32 -> g_run [{n}, {c}, {f}] f32, "
+              f"running [{n}, {c}] bool, 5 carries [{c}, {f}]",
+        max_abs_err=nr_err, max_rel_err=nr_rel, chained_calls=2,
+        tolerance=f"g_run and carries within rtol {NR_RTOL}, running and "
+                  f"stage equal",
+        ms=time_ms(run_nr, 20), kernel_ms=kernel_ms(run_nr),
+        device_ms=device_ms(run_nr),
+        plain_ms=time_ms(lambda: nr.gain_frames_plain(
+            pc, p.alpha, p.xih1r, p.pfac, xp), 3),
+        chain_floor_ms=kernel_ms(lambda: nr.chain_probe(
+            pc, p.alpha, p.xih1r, p.pfac, xp)),
+        **profiled(run_nr),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        chain_note=f"{n} dependent frames per (channel, bin)"))
+    del x, x_pows, tt, gate
+
+    # ---- K-ANR, LMS NR at the config's defaults: 25 blocks of 256 and
+    # one of 80 a step
+    pa = make_anr_params(notch=False)
+    bsz = block_size(pa, t)
+    tt = torch.arange(2 * t, device="cuda") / 12000.0
+    xa = (3000 * torch.sin(2 * math.pi * 800 * tt
+                           + torch.rand(c, 1, device="cuda", generator=gen))
+          + 1000 * torch.randn(c, 2 * t, device="cuda", generator=gen))
+    sa = init_anr_state(c, pa, "cuda")
+    kc = pc = tuple(sa)
+    scale = float(xa.abs().max())
+    anr_err = 0.0
+    lms = (pa.taps, pa.delay, pa.two_mu, pa.gamma, pa.notch, bsz)
+    for k in range(2):
+        xs = xa[:, k * t:(k + 1) * t].contiguous()
+        kc, ko = anr.lms_blocks(*kc, xs, *lms)
+        pc, po = anr.lms_blocks_plain(*pc, xs, *lms)
+        torch.cuda.synchronize()
+        anr_err = max([anr_err, float((ko - po).abs().max())]
+                      + [float((a - b).abs().max()) for a, b in zip(kc, pc)])
+    if anr_err > ANR_ATOL * scale:
+        raise AssertionError(f"K-ANR vs plain: max |diff| {anr_err} > "
+                             f"{ANR_ATOL} * {scale}")
+
+    def run_anr():
+        anr.lms_blocks(*pc, xs, *lms)
+
+    b_ms, b_by = bound_ms(2 * c * t * 4 + 2 * c * (pa.taps * 2 + pa.delay
+                                                   + 2) * 4,
+                          c * t * 6 * pa.taps)
+    rows.append(dict(
+        name="K-ANR block LMS NR / auto-notch", route="cuda",
+        source="phantomsdr_tpu_torch/csrc/anr.cu",
+        replaces="phantomsdr_tpu/ops/anr.py:249 (lax.scan over "
+                 "_block_body, anr.py:193-225)",
+        kernel=anr.KERNEL,
+        shape=f"[{c}, {t}] f32 -> [{c}, {t}] f32, taps {pa.taps}, delay "
+              f"{pa.delay}, blocks {t // bsz} x {bsz} + {t % bsz}",
+        max_abs_err=anr_err, chained_calls=2,
+        tolerance=f"output and carries |diff| <= {ANR_ATOL} * max|x|",
+        ms=time_ms(run_anr, 20), kernel_ms=kernel_ms(run_anr),
+        device_ms=device_ms(run_anr),
+        plain_ms=time_ms(lambda: anr.lms_blocks_plain(*pc, xs, *lms), 3),
+        chain_floor_ms=kernel_ms(lambda: anr.chain_probe(*pc, xs, *lms)),
+        **profiled(run_anr),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        chain_note=f"{-(-t // bsz)} dependent LMS blocks per channel"))
+    del xa, tt
+
+    # ---- K-NB: the blanker's two launches around the FIRs, on rows
+    # with clicks; each launch against its plain version on the same
+    # inputs (the card's own LPC fit and residual), so that a rounding
+    # difference upstream cannot move a detection
+    pn = nbm.make_nb_params()
+    order, il = pn.taps, pn.impulse_len
+    lo = order + (il - 1) // 2
+    xn = click_rows(c, 2 * t, gen)
+    state = nbm.init_nb_state(c, pn, "cuda")
+    scale = float(xn.abs().max())
+    nb_err, lpc_err, counts, margins, sel_margins = 0.0, 0.0, [], [], []
+    for k in range(2):
+        xs = xn[:, k * t:(k + 1) * t].contiguous()
+        wb = torch.cat([state.tail, xs], 1).contiguous()
+        lpcs, cf, cb = nb.lpc_coeffs(wb, t, order, il)
+        want = nb.lpc_coeffs_plain(wb, t, order, il)
+        lpc_err = max([lpc_err] + [float((a - b).abs().max())
+                                   for a, b in zip((lpcs, cf, cb), want)])
+        temp = nbm.fir_fresh(lpcs, nbm.fir_fresh(
+            lpcs.flip(1), wb[:, lo:lo + t])).contiguous()
+        wbf, kcount, kpos, kthr = nb.repair(wb, temp, lpcs, cf, cb,
+                                            pn.thresh, order, il)
+        pwbf, pcount, ppos, _ = nb.repair_plain(wb, temp, lpcs, cf, cb,
+                                                pn.thresh, order, il)
+        torch.cuda.synchronize()
+        if not (torch.equal(kcount, pcount) and torch.equal(kpos, ppos)):
+            raise AssertionError(f"K-NB vs plain: impulse counts or "
+                                 f"positions differ in call {k + 1}")
+        nb_err = max(nb_err, float((wbf - pwbf).abs().max()))
+        state = state._replace(tail=wbf[:, t:].contiguous())
+        counts.append(kcount.tolist())
+        ratio = (temp[:, lo:].abs() / kthr[:, None] - 1).abs()
+        margins.append(float(ratio.min()))
+        sel = torch.gather(ratio, 1, (kpos.long() + order - lo).clamp(min=0))
+        valid = torch.arange(20, device="cuda")[None] < kcount[:, None]
+        sel_margins.append(float(sel[valid].min()) if valid.any() else None)
+    if nb_err > NB_ATOL * scale or lpc_err > NB_LPC_ATOL:
+        raise AssertionError(f"K-NB vs plain: repaired buffer max |diff| "
+                             f"{nb_err} (bound {NB_ATOL} * {scale}), LPC "
+                             f"coefficients {lpc_err} (bound {NB_LPC_ATOL})")
+
+    def run_nb():
+        nb.lpc_coeffs(wb, t, order, il)
+        nb.repair(wb, temp, lpcs, cf, cb, pn.thresh, order, il)
+
+    def run_nb_plain():
+        nb.lpc_coeffs_plain(wb, t, order, il)
+        nb.repair_plain(wb, temp, lpcs, cf, cb, pn.thresh, order, il)
+
+    wlen = wb.shape[1]
+    b_ms, b_by = bound_ms(c * 4 * (t + (order + 1) + 2 * il * order)
+                          + c * 4 * (2 * wlen + t + 2 * il * order + order
+                                     + 1) + c * 4 * 22,
+                          c * (2 * (order + 1) * t + 4 * t
+                               + 4 * 20 * il * order))
+    rows.append(dict(
+        name="K-NB noise blanker (LPC fit; search + repairs)", route="cuda",
+        source="phantomsdr_tpu_torch/csrc/nb.cu",
+        replaces="phantomsdr_tpu/ops/nb.py:161 (search lax.scan), :188, "
+                 ":195 (coefficient lax.scans), :255 (repair lax.scan), "
+                 "nb_process nb.py:104-282",
+        kernel=nb.REPAIR_KERNEL, kernels=[nb.LPC_KERNEL, nb.REPAIR_KERNEL],
+        shape=f"wb [{c}, {wlen}] f32, order {order}, il {il} -> repaired "
+              f"wb [{c}, {wlen}], <= 20 impulses a channel",
+        max_abs_err=nb_err, lpc_max_abs_err=lpc_err, chained_calls=2,
+        tolerance=f"counts and positions equal, repaired buffer |diff| <= "
+                  f"{NB_ATOL} * max|x| (launch 2 on the inputs launch 1 "
+                  f"and the FIRs gave it); LPC coefficients |diff| <= "
+                  f"{NB_LPC_ATOL}",
+        impulses_per_channel=counts,
+        # min over the searched positions of | |temp| / thr - 1 |, and
+        # over the detected ones: how close a detection came to flipping
+        threshold_margin_min=margins,
+        threshold_margin_min_detected=sel_margins,
+        ms=time_ms(run_nb, 20), kernel_ms=kernel_ms(run_nb),
+        device_ms=device_ms(run_nb),
+        nb_process_device_ms=device_ms(lambda: nbm.nb_process(state, pn,
+                                                              xs)),
+        plain_ms=time_ms(run_nb_plain, 3),
+        chain_floor_ms=kernel_ms(lambda: nb.repair_chain_probe(
+            wb, temp, lpcs, cf, cb, order, il)),
+        **profiled(run_nb),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        chain_note="Levinson (order^2/2 steps), 2 x il recursion steps and "
+                   "up to 20 dependent repair slots per channel"))
+    return rows
+
+
 # per-sample operation counts used for the operations bound (float32
 # operations, transcendental functions counted as ~20 each)
 PLL_OPS_PER_SAMPLE = 60
 AGC_OPS_PER_SAMPLE = 12
 PILOT_OPS_PER_SAMPLE = 55      # sin + cos(2 ph) and 15 float operations
 DEEMPH_OPS_PER_SAMPLE = 3
+NR_OPS_PER_BIN = 80            # ~30 float operations, expf, 4 div/sqrt
+# K-NR vs plain: the same float32 operations in the same order; expf,
+# division and sqrt are the accurate ones on both sides
+NR_RTOL = 1e-5
+# K-ANR vs plain, K-NB vs plain: the bars of tests/test_torch_anr.py and
+# tests/test_torch_nb.py (the long sums add in another order)
+ANR_ATOL = 1e-4
+NB_ATOL = 1e-5
+# K-NB's LPC fit vs plain: lags summed in another order go through
+# Levinson's divisions (coefficients of order 1)
+NB_LPC_ATOL = 1e-3
 # K-DEEMPH vs its plain loop: the same recurrence, but each 32-sample
 # chunk starts from a carry the block scan composed in another order
 # (tests/test_deemph.py's atol 2e-5 at unit scale)
@@ -1014,6 +1281,281 @@ def phase_small_wbfm():
           "rds_max_steps": int(rdiff.max()),
           "rds_frac_differing": float((rdiff > 0).mean()),
           "audio_shape": list(results["cuda"][0].shape)})
+
+
+def small_nr_cfg(algo: str):
+    """__graft_entry__._small_cfg's sizes (FFT 4096 at 192 kS/s, 12 kHz
+    audio, 4 hops a step, 16 channels) with [input] nr = true."""
+    from phantomsdr_tpu_torch.config import config_from_dict
+
+    return config_from_dict({
+        "input": {"sps": 192000, "frequency": 7000000, "fft_size": 4096,
+                  "signal": "iq", "audio_sps": 12000, "waterfall_size": 512,
+                  "nr": True, "nr_algo": algo, "driver": {"format": "s16"}},
+        "tpu": {"hop_batch": 4, "max_channels": 16}})
+
+
+NR_ALGOS = ("spectral", "lms", "notch", "nb")
+
+
+def phase_small_nr():
+    """For each nr_algo, the whole step on the card against the whole
+    step on the CPU (plain versions), every other row opted in, 8 steps
+    (the AGC's 0.2 s window and spectral NR's 20-frame start take the
+    first 5)."""
+    import torch
+
+    from phantomsdr_tpu_torch.pipeline import HopPipeline, channels_from_numpy
+
+    errs, peaks = {}, {}
+    for algo in NR_ALGOS:
+        cfg = small_nr_cfg(algo)
+        c, r = cfg.max_channels, cfg.fft_result_size
+        l = np.linspace(10, r - 300, c).astype(np.int32)
+        results = {}
+        for dev in ("cuda", "cpu"):
+            pipe = HopPipeline(cfg, device=dev)
+            table = channels_from_numpy(l, l + 100, l + 50, np.arange(c) % 4,
+                                        np.ones(c, bool),
+                                        nr=np.arange(c) % 2 == 0, device=dev)
+            state = pipe.init_state()
+            rng = np.random.default_rng(SEED)
+            audio = []
+            for _ in range(8):
+                n = (cfg.hop_batch + 1) * pipe.wire_per_hop
+                raw = (rng.integers(-3000, 3000, n)
+                       + 8000 * np.sin(0.13 * np.arange(n))
+                       + 20000 * (rng.random(n) < 0.002)).astype(np.int16)
+                state, out = pipe.step(state, torch.from_numpy(raw).to(dev),
+                                       table, waterfall="off")
+                audio.append(out.audio.cpu().numpy().astype(int))
+            results[dev] = np.concatenate(audio)
+        errs[algo] = int(np.abs(results["cuda"] - results["cpu"]).max())
+        peaks[algo] = int(np.abs(results["cpu"]).max())
+        if errs[algo] > 4 or peaks[algo] < 1000:
+            raise AssertionError(f"small_nr {algo}: card vs CPU int16 "
+                                 f"{errs[algo]} (peak {peaks[algo]})")
+    emit({"phase": "small_nr", "audio_max_abs_int16": errs,
+          "audio_peak_int16": peaks, "steps": 8, "opted_in_rows": "even"})
+
+
+class NrScene:
+    """Four listeners' audio, each for one noise processor, at the bench
+    config's exact bins (display bin m is (m - N/2 + 1) * fs/N Hz), with
+    in-band noise: complex Gaussian held for ``hold`` samples (a power of
+    two near fs / 34 kHz: 1024 at 35 MSPS), shifted into the channel.
+
+    - channel 0, USB, spectral NR: a 1 kHz tone, off for 1.2 s, then 1 s
+      on / 1 s off (a steady tone is adapted into the noise floor by
+      design),
+    - channel 4, USB, LMS NR: a steady 1 kHz tone in noise,
+    - channel 8, USB, auto-notch: a steady 800 Hz tone in weak noise,
+    - channel 12, AM, noise blanker: a carrier modulated 50% by 600 Hz,
+      and clicks on its envelope 5 a second, each 8 audio samples wide
+      and 5 times the tone's height (tools/verify's capture notes: the
+      LPC whitener nearly cancels 1-2-sample pulses; clicks that
+      dominated the frame's residual would raise its threshold over
+      them).
+    The USB audio of a channel at m is the IQ content above freq(m); the
+    AM audio is the carrier's envelope.
+    """
+
+    CHANNELS = (0, 4, 8, 12)
+    ALGOS = ("spectral", "lms", "notch", "nb")      # one per channel
+
+    def __init__(self, cfg):
+        n, fs = cfg.fft_size, cfg.sps
+        self.fs, self.n = fs, n
+        self.df = fs / n
+        self.audio_rate = cfg.audio_fft_size * self.df
+        self.m = [int(f * n) for f in (0.30, 0.40, 0.60, 0.70)]
+        self.width = 3000 * n // fs
+        self.hold = 1 << round(math.log2(fs / 34000))
+        half = cfg.audio_fft_size // 2
+        m = self.m
+        # (l, r, mid, mode) of the four listeners; the AM one hears the
+        # whole audio band, so that its noise is white (the LPC model
+        # of a band with an empty stretch has large coefficients, whose
+        # power raises the blanker's threshold above every click)
+        self.rows = [(m[0], m[0] + self.width, m[0], 0),
+                     (m[1], m[1] + self.width, m[1], 0),
+                     (m[2], m[2] + self.width, m[2], 0),
+                     (m[3] - half, m[3] + half, m[3], 2)]
+
+    def freq(self, m: float) -> float:
+        return (m - self.n / 2 + 1) * self.df
+
+    def iq(self, start: int, count: int, gen, device="cuda"):
+        """Samples [start, start+count) as u8 interleaved IQ (count a
+        multiple of ``hold``)."""
+        import torch
+
+        t = torch.arange(start, start + count, dtype=torch.float64,
+                         device=device)
+        secs = t / self.fs
+
+        def tone(m, f_hz, amp):
+            cyc = torch.remainder(t * ((self.freq(m) + f_hz) / self.fs), 1.0)
+            return amp * torch.polar(torch.ones_like(t), 2 * math.pi * cyc)
+
+        def noise(m, sigma):
+            low = torch.randn((count // self.hold, 2), dtype=torch.float64,
+                              device=device, generator=gen) * sigma
+            held = torch.view_as_complex(low).repeat_interleave(self.hold)
+            return held * tone(m, 1500.0, 1.0)
+
+        m0, m1, m2, m3 = self.m
+        gate = ((secs > 1.2) & (torch.floor(secs - 1.2) % 2 == 0)).double()
+        x = tone(m0, 1000.0, 0.06) * gate + noise(m0, 0.03)
+        x = x + tone(m1, 1000.0, 0.06) + noise(m1, 0.04)
+        x = x + tone(m2, 800.0, 0.06) + noise(m2, 0.01)
+        clicks = (torch.remainder(secs - 0.05, 0.2)
+                  < 8 / self.audio_rate).double()
+        env = (1.0 + 0.5 * torch.sin(2 * math.pi * 600.0 * secs)
+               + 2.5 * clicks)
+        x = x + tone(m3, 0.0, 0.05) * env + noise(m3, 0.005)
+        iq = torch.stack([x.real, x.imag], dim=-1)
+        return torch.clamp(torch.round(iq * 128 + 128), 0, 255).to(
+            torch.uint8).reshape(-1)
+
+
+def nr_metric(algo: str, off: np.ndarray, on: np.ndarray, rate: float):
+    """tools/verify/client.py's judgement of each processor
+    (client.py:443-510) on the listener's audio without and with the
+    nr opt-in: (numbers, passed)."""
+    if algo == "spectral":
+        res = {}
+        for name, x in (("off", off), ("on", on)):
+            wins = np.array_split(x, max(1, len(x) // int(rate // 4)))
+            res[name] = {"floor": min(float(np.sqrt(np.mean(w ** 2)))
+                                      for w in wins),
+                         "tone": tone_amp(x, 1000.0, rate)}
+        drop = 20 * math.log10(res["off"]["floor"]
+                               / max(res["on"]["floor"], 1e-30))
+        tone = 20 * math.log10(res["on"]["tone"]
+                               / max(res["off"]["tone"], 1e-30))
+        return ({"floor_drop_db": drop, "tone_delta_db": tone, **res},
+                drop > 4 and tone > -6)
+    if algo == "lms":
+        snr = {}
+        for name, x in (("off", off), ("on", on)):
+            spec = np.abs(np.fft.rfft(x * np.hanning(len(x)))) ** 2
+            freqs = np.fft.rfftfreq(len(x), 1.0 / rate)
+            sig = (freqs > 970) & (freqs < 1030)
+            noise = (freqs > 200) & (freqs < 4500) & ~sig
+            snr[name] = 10 * math.log10(spec[sig].max()
+                                        / max(np.mean(spec[noise]), 1e-30))
+        return ({"snr_db": snr, "gain_db": snr["on"] - snr["off"]},
+                snr["on"] - snr["off"] > 6)
+    if algo == "notch":
+        a_off, a_on = tone_amp(off, 800.0, rate), tone_amp(on, 800.0, rate)
+        rej = 20 * math.log10(a_off / max(a_on, 1e-30))
+        return {"tone_off": a_off, "tone_on": a_on, "rejection_db": rej}, \
+            rej > 26
+    counts = {name: int(np.sum(np.abs(x) > 4.0 * np.sqrt(np.mean(x ** 2))))
+              for name, x in (("off", off), ("on", on))}
+    return {"click_samples": counts}, (counts["off"] > 20 and counts["on"]
+                                       < 0.6 * counts["off"])
+
+
+NR_STEPS = 10
+
+
+def phase_nr(kernels):
+    """The bench config with [input] nr = true for each nr_algo, at full
+    width (128 channels, 128 waterfall views, 'views' steps): every
+    listener opted in (a server where everyone turned noise reduction
+    on).  Per algo the same capture runs with the nr column off and then
+    on; each processor is judged on its listener as tools/verify judges
+    it; step times, the profiler's split and the device-busy share of
+    the opted-in run.  Returns the launches of each algo's opted-in
+    run."""
+    import torch
+
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.pipeline import (
+        HopPipeline, WaterfallViews, channels_from_numpy, to_device,
+    )
+
+    base = config_from_dict(BENCH_CFG)
+    scene = NrScene(base)
+    tones = Tones(base)
+    (l, rr, mid, modes, active), (starts, lengths) = bench_tables(base, tones)
+    for k, row in zip(NrScene.CHANNELS, scene.rows):
+        l[k], rr[k], mid[k], modes[k] = row
+    c = base.max_channels
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    hop = base.hop_size
+    blk = base.hop_batch * hop
+    stream = torch.cat([scene.iq(s * blk, blk, gen) for s in range(NR_STEPS)]
+                       + [scene.iq(NR_STEPS * blk, hop, gen)])
+    wire = 2 * blk
+    results, launches_by_algo = {}, {}
+    for algo in NR_ALGOS:
+        # the notch converges at two_mu 1e-3 within the run (the gain of
+        # tests/test_nr.py's notch test); the others at the defaults
+        extra = {"nr_two_mu": 1e-3} if algo == "notch" else {}
+        cfg = config_from_dict({**BENCH_CFG, "input": {
+            **BENCH_CFG["input"], "nr": True, "nr_algo": algo, **extra}})
+        pipe = HopPipeline(cfg, device="cuda")
+        views = WaterfallViews(start=to_device(starts, torch.int32, "cuda"),
+                               length=to_device(lengths, torch.int32, "cuda"))
+        audio, step_ms = {}, []
+        for opted in (False, True):
+            table = channels_from_numpy(l, rr, mid, modes, active,
+                                        nr=np.full(c, opted), device="cuda")
+            state = pipe.init_state()
+            got = []
+            torch.cuda.synchronize()
+            if opted:
+                for k in kernels:
+                    k.launches = 0
+            for s in range(NR_STEPS):
+                raw = stream[s * wire: s * wire + wire + 2 * hop]
+                t0 = time.perf_counter()
+                state, out = pipe.step(state, raw, table, views, "views",
+                                       due_idx=pipe.default_due_idx(
+                                           s * cfg.hop_batch))
+                torch.cuda.synchronize()
+                if opted:
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                got.append(out.audio[:, list(NrScene.CHANNELS)].cpu()
+                           .numpy())
+                if not bool(torch.isfinite(out.avg_power).all()):
+                    raise AssertionError(f"nr {algo} step {s}: non-finite "
+                                         f"channel power")
+            audio[opted] = np.concatenate(got)          # [hops, 4, half]
+        launches = {k.name: k.launches for k in kernels}
+        launches_by_algo[algo] = launches
+        ch = NrScene.ALGOS.index(algo)
+        # judge from 1.2 s on (the AGC window, NR's start, the LMS
+        # transient); LMS and notch on the second half, as tools/verify
+        # lets them settle 2.5 s
+        first = int(1.2 * scene.audio_rate) if algo in ("spectral", "nb") \
+            else audio[False].shape[0] * audio[False].shape[2] // 2
+        off = audio[False][:, ch].reshape(-1).astype(np.float64)[first:]
+        on = audio[True][:, ch].reshape(-1).astype(np.float64)[first:]
+        numbers, ok = nr_metric(algo, off, on, scene.audio_rate)
+        need = {"spectral": ["nr"], "lms": ["anr"], "notch": ["anr"],
+                "nb": ["nb_lpc", "nb_repair"]}[algo]
+        if not ok or any(launches[k] <= 0 for k in need):
+            raise AssertionError(f"nr {algo}: {numbers}, launches "
+                                 f"{launches}")
+        raw = stream[:wire + 2 * hop]
+        table = channels_from_numpy(l, rr, mid, modes, active,
+                                    nr=np.ones(c, bool), device="cuda")
+
+        def one_step():
+            pipe.step(state, raw, table, views, "views")
+        split = split_device_us(one_step)
+        med = float(np.median(step_ms[1:10]))
+        results[algo] = {"check": numbers, "launches": launches,
+                         "step_ms": step_ms, "step_ms_median": med,
+                         "device_split": split,
+                         "device_busy_share": split["total_us"] / 1e3 / med,
+                         "msps": blk / (med * 1e-3) / 1e6}
+        emit({"phase": "nr", "nr_algo": algo, **results[algo]})
+    return launches_by_algo
 
 
 def phase_wbfm(kernels):
@@ -1413,12 +1955,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from phantomsdr_tpu_torch.config import config_from_dict
-    from phantomsdr_tpu_torch.ops.cuda import agc, deemph, pilot, pll, waterfall
+    from phantomsdr_tpu_torch.ops.cuda import (
+        agc, anr, deemph, nb, nr, pilot, pll, waterfall,
+    )
 
     torch.manual_seed(SEED)
     main_kernels = [waterfall.KERNEL, pll.KERNEL, agc.KERNEL]
     wbfm_kernels = [pilot.KERNEL, deemph.KERNEL, agc.FLOAT_KERNEL]
-    kernels = main_kernels + wbfm_kernels
+    nr_kernels = [nr.KERNEL, anr.KERNEL, nb.LPC_KERNEL, nb.REPAIR_KERNEL]
+    kernels = main_kernels + wbfm_kernels + nr_kernels
     smi = phase_card()
     phase_build(kernels)
 
@@ -1432,25 +1977,40 @@ def main() -> int:
     rows = phase_kernels(cfg, stream[:(cfg.hop_batch + 1) * 2 * hop])
     phase_small()
     phase_small_wbfm()
+    phase_small_nr()
     launches = phase_main(cfg, tones, stream, main_kernels)
     host_bytes = stream[:4 * 2 * blk].cpu().numpy().tobytes()
     del stream
     phase_driver(cfg, tones, host_bytes)
     phase_server(cfg, tones, host_bytes)
+    nr_launches = phase_nr(kernels)
     wbfm_launches = phase_wbfm(kernels)
     rds_launches = phase_rds(kernels)
 
     # each kernel's launches on its path: the bench-config main phase
-    # for K-WF, K-PLL and K-AGC, the wideband WBFM phase for the others
+    # for K-WF, K-PLL and K-AGC, the wideband WBFM phase for K-PILOT,
+    # K-DEEMPH and K-AGC float, the nr phase's opted-in run of spectral
+    # (K-NR), lms (K-ANR) and nb (K-NB: both its launchers)
+    nr_path = {"nr": "spectral", "anr": "lms", "nb_repair": "nb"}
     for row in rows:
         k = row.pop("kernel")
-        path = "main" if k in main_kernels else "wbfm"
-        row["launches"] = (launches if path == "main"
-                           else wbfm_launches)[k.name]
+        launchers = row.pop("kernels", [k])
+        if k in main_kernels:
+            path, counts = "main", launches
+        elif k in wbfm_kernels:
+            path, counts = "wbfm", wbfm_launches
+        else:
+            path = f"nr {nr_path[k.name]}"
+            counts = nr_launches[nr_path[k.name]]
+        row["launches"] = min(counts[x.name] for x in launchers)
         row["launches_path"] = path
-        row["launches_by_path"] = {"main": launches.get(k.name, 0),
-                                   "wbfm": wbfm_launches[k.name],
-                                   "rds": rds_launches[k.name]}
+        row["launches_by_path"] = {
+            "main": launches.get(k.name, 0), "wbfm": wbfm_launches[k.name],
+            "rds": rds_launches[k.name],
+            **{f"nr {a}": nr_launches[a][k.name] for a in NR_ALGOS}}
+        if len(launchers) > 1:
+            row["launches_by_launcher"] = {x.name: counts[x.name]
+                                           for x in launchers}
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: not launched on its path")
         row["checked"] = True

@@ -16,8 +16,8 @@ for compatibility; the compute device is chosen by the caller
 This is the PyTorch/CUDA package's own copy of the JAX package's
 config, with its validations.  The options this package does not
 implement yet are rejected at config time with a clear error
-(``unsupported_options``), never silently skipped: nr, mesh mode and
-AV1 waterfall compression.  The ``[tpu]`` table keeps its
+(``unsupported_options``), never silently skipped: mesh mode and AV1
+waterfall compression.  The ``[tpu]`` table keeps its
 name for config-file compatibility; its ``fft_strategy`` key is read
 and ignored.
 """
@@ -70,9 +70,9 @@ class ServerConfig:
     # With am_sync on, each listener can still opt out to envelope
     # per-client ({"cmd":"am_sync","enabled":false}).
     am_sync: bool = True
-    # Opt-in DSP stages: WBFM stereo, RDS and de-emphasis run on the
-    # device; the noise processors (nr*, nb_*) are parsed so the JAX
-    # package's config files load, and rejected by unsupported_options.
+    # Opt-in DSP stages, all on the device: WBFM stereo, RDS,
+    # de-emphasis and the noise processors (nr_algo: spectral NR, LMS NR
+    # "lms", auto-notch "notch" or the noise blanker "nb").
     stereo: bool = False
     nr: bool = False
     nr_algo: str = "spectral"
@@ -238,6 +238,15 @@ class ServerConfig:
         if self.deemphasis < 0 or self.deemphasis > 1000:
             raise ValueError("[input] deemphasis must be 0..1000 us")
 
+        if self.nr and self.nr_algo == "nb":
+            if not 3 <= self.nb_samples <= 201:
+                # impulse_len 1 would divide by zero in the crossfade
+                # weights (ops/nb.py) and NaN every repair
+                raise ValueError("[input] nb_samples must be in [3, 201]")
+            if not 1 <= self.nb_taps <= 40:
+                raise ValueError("[input] nb_taps must be in [1, 40] "
+                                 "(NB.c:19 max_lpc_order)")
+
         if self.rds:
             from .ops.rds import (
                 MAX_BASEBAND_SPS, rds_decim_for,
@@ -338,8 +347,6 @@ def unsupported_options(c: ServerConfig) -> list[str]:
     """The opt-in stages this package does not implement yet, as they
     are set in ``c`` (empty when the config is servable)."""
     out = []
-    if c.nr:
-        out.append("[input] nr=true")
     if c.mesh_devices > 1:
         out.append(f"[tpu] mesh_devices={c.mesh_devices}")
     if c.waterfall_compression == "av1":

@@ -7,10 +7,8 @@ per-channel DSP state, the channel table and the waterfall view table.
 ``jax.tree.map(np.asarray, state)``) and returns this package's type on
 a device; ``state_to_numpy`` returns this package's state with numpy
 leaves, fields named as in the JAX package.  Nothing here imports JAX:
-the JAX types are read by their field names.
-
-The JAX ``AudioState`` also holds the carries of noise reduction, a
-stage this package rejects at config time; they are not carried over.
+the JAX types are read by their field names (the noise processor's
+carries by theirs: ``NRState``, ``ANRState`` or ``NBState``).
 """
 
 from __future__ import annotations
@@ -19,7 +17,10 @@ import numpy as np
 import torch
 
 from .ops.agc import AGCState, DCBlockerState
+from .ops.anr import ANRState
 from .ops.channelizer import ChannelState
+from .ops.nb import NBState
+from .ops.nr import NRState
 from .ops.polyphase import DecimatorState
 from .ops.rds import RDSState
 from .ops.stereo import StereoState
@@ -36,6 +37,15 @@ def _part(cls, src, device):
     return cls(*(_tensor(getattr(src, f), device) for f in cls._fields))
 
 
+def _nr_part(src, device):
+    """The noise processor's carries, by their field names."""
+    fields = set(src._fields)
+    for cls in (NRState, ANRState, NBState):
+        if fields == set(cls._fields):
+            return _part(cls, src, device)
+    raise TypeError(f"not a noise-processor state: {type(src).__name__}")
+
+
 def state_from_numpy(tree, device="cpu"):
     """JAX HopState / ChannelTable / WaterfallViews (numpy leaves) ->
     this package's HopState / ChannelTable / WaterfallViews."""
@@ -49,12 +59,13 @@ def state_from_numpy(tree, device="cpu"):
                              agc=_part(AGCState, a.agc, device),
                              dec=_part(DecimatorState, a.dec, device),
                              st=_part(StereoState, a.st, device),
+                             nr=_nr_part(a.nr, device),
                              rds=_part(RDSState, a.rds, device),
                              de=_tensor(a.de, device)))
     if "m_idx" in fields:
         return channels_from_numpy(tree.l, tree.r, tree.m_idx, tree.mode,
                                    tree.active, am_env=tree.am_env,
-                                   rds=tree.rds, device=device)
+                                   rds=tree.rds, nr=tree.nr, device=device)
     if "start" in fields and "length" in fields:
         return _part(WaterfallViews, tree, device)
     raise TypeError(f"not a HopState, ChannelTable or WaterfallViews: "

@@ -58,12 +58,13 @@ class ChannelTable(NamedTuple):
     l, r: slice bounds in display-order bins (0 <= l <= r < R),
     m_idx: floor(mid) in display-order bins, mode: MODE_*, active: row
     is a live listener, am_env: AM envelope opt-out of the PLL, rds: the
-    listener's {"cmd":"rds"} opt-in.  (The JAX table's nr column serves
-    a stage this package rejects.)  ``need_pll`` and ``need_rds`` are
-    decided on the host from the same table (some active AM row wants
-    the PLL; some active FM row wants RDS), so the step never waits on
-    the device to choose whether to run those stages.  A skipped stage
-    leaves its carries stale, as the JAX package's lax.cond does.
+    listener's {"cmd":"rds"} opt-in, nr: its {"cmd":"nr"} opt-in.
+    ``need_pll``, ``need_rds`` and ``need_nr`` are decided on the host
+    from the same table (some active AM row wants the PLL; some active
+    FM row wants RDS; some active row wants noise reduction), so the
+    step never waits on the device to choose whether to run those
+    stages.  A skipped stage leaves its carries stale, as the JAX
+    package's lax.cond does.
     """
 
     l: torch.Tensor       # [C] int32
@@ -73,8 +74,10 @@ class ChannelTable(NamedTuple):
     active: torch.Tensor  # [C] bool
     am_env: torch.Tensor  # [C] bool
     rds: torch.Tensor     # [C] bool
+    nr: torch.Tensor      # [C] bool
     need_pll: bool
     need_rds: bool
+    need_nr: bool
 
 
 class ChannelState(NamedTuple):

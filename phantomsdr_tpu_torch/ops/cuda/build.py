@@ -174,6 +174,13 @@ def stream_and_device(t: torch.Tensor) -> tuple[int, int]:
     return torch.cuda.current_stream(dev).cuda_stream, dev
 
 
+def div_scalar(x: torch.Tensor, k: float) -> torch.Tensor:
+    """x / k rounded once, as JAX divides by a constant (on the card
+    PyTorch divides by a Python scalar as a multiplication by its
+    rounded reciprocal).  For the plain versions of the kernels."""
+    return x / torch.full((), k, dtype=x.dtype, device=x.device)
+
+
 def check_host_or_cuda(t: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor (plain version), False for CUDA (kernel);
     raise for any other device."""

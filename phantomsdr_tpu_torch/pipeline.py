@@ -15,7 +15,11 @@ writes the gained stream as float32 instead, and it goes on through, in
 the JAX package's order: the RDS tap (pilot PLL and 57 kHz downmix:
 kernel K-PILOT; lowpass, decimate, int8), the stereo demix (K-PILOT,
 sharing the RDS tap's pilot when both are on), de-emphasis (kernel
-K-DEEMPH), Opus decimation, and only then int16.
+K-DEEMPH), Opus decimation, and only then int16.  With ``[input] nr``
+the listeners' noise processor runs between the RDS tap and the stereo
+demix, on the float stream too: spectral NR (its frame recursion:
+kernel K-NR), LMS NR / auto-notch (kernel K-ANR) or the noise blanker
+(kernel K-NB).
 
 It replaces, in order: src/fft.cpp:10-119 (fft_task), src/fft_impl.cpp
 (FFTW backend + quantize kernels), src/fft_cuda.cu,
@@ -46,6 +50,7 @@ from .ops.agc import (
     AGCState, DCBlockerState, dc_blocker, dc_blocker_delay, init_agc_state,
     init_dc_state, make_agc_params,
 )
+from .ops.anr import ANRParams, anr_process, init_anr_state, make_anr_params
 from .ops.channelizer import (
     MODE_AM, MODE_FM, ChannelState, ChannelTable, demodulate_batch,
     float_to_int16, init_channel_state,
@@ -55,6 +60,10 @@ from .ops.cuda.pilot import pilot_mix
 from .ops.cuda.waterfall import pyramid_width, waterfall_rows
 from .ops.deemph import deemph_alpha, deemph_process
 from .ops.fft import forward_spectrum, frame_hops
+from .ops.nb import NBParams, init_nb_state, make_nb_params, nb_process
+from .ops.nr import (
+    NRParams, NRState, init_nr_state, make_nr_params, nr_process,
+)
 from .ops.polyphase import (
     DecimatorState, decimator_taps, init_decimator_state, polyphase_decimate,
 )
@@ -81,6 +90,9 @@ class AudioState(NamedTuple):
     agc: AGCState
     dec: DecimatorState  # Opus decimation filter tail ([C*nch, 0] if off)
     st: StereoState      # WBFM stereo carries
+    nr: NRState          # noise-reduction carries: NRState (spectral),
+    #                      ANRState (lms/notch) or NBState (nb); an
+    #                      NRState of zero-width rows when nr is off
     rds: RDSState        # RDS subcarrier carries
     de: torch.Tensor     # [C*nch] de-emphasis carry y[-1]
 
@@ -201,6 +213,35 @@ def deemph_alpha_for(cfg: ServerConfig) -> float | None:
             if cfg.deemphasis > 0 else None)
 
 
+def nr_params_for(cfg: ServerConfig
+                  ) -> NRParams | ANRParams | NBParams | None:
+    """The configured noise processor's constants: NRParams (spectral,
+    the default), ANRParams (LMS NR / auto-notch) or NBParams (noise
+    blanker); None when nr is off."""
+    if not cfg.nr:
+        return None
+    if cfg.nr_algo == "nb":
+        return make_nb_params(thresh=cfg.nb_thresh, taps=cfg.nb_taps,
+                              samples=cfg.nb_samples)
+    if cfg.nr_algo in ("lms", "notch"):
+        return make_anr_params(notch=cfg.nr_algo == "notch",
+                               taps=cfg.nr_taps, delay=cfg.nr_delay,
+                               two_mu=cfg.nr_two_mu, gamma=cfg.nr_leakage)
+    return make_nr_params(cfg.audio_fft_size // 2, final_gain=cfg.nr_gain,
+                          alpha=cfg.nr_alpha, asnr_db=cfg.nr_asnr_db)
+
+
+def init_nr_carries(cfg: ServerConfig, num_channels: int, device):
+    """The noise processor's carries for ``cfg`` (zero-width when off)."""
+    params = nr_params_for(cfg)
+    if isinstance(params, NBParams):
+        return init_nb_state(num_channels, params, device)
+    if isinstance(params, ANRParams):
+        return init_anr_state(num_channels, params, device)
+    return init_nr_state(num_channels,
+                         cfg.audio_fft_size // 2 if cfg.nr else 0, device)
+
+
 def init_audio_state(cfg: ServerConfig, num_channels: int, agc_window: int,
                      dc_delay: int, device) -> AudioState:
     taps = opus_decim_taps(cfg)
@@ -213,6 +254,7 @@ def init_audio_state(cfg: ServerConfig, num_channels: int, agc_window: int,
                                  taps.shape[0] if taps is not None else 1,
                                  device),
         st=init_stereo_state(num_channels, stereo_params_for(cfg), device),
+        nr=init_nr_carries(cfg, num_channels, device),
         rds=init_rds_state(num_channels, rds_params_for(cfg), device),
         de=torch.zeros((num_channels * nch,), dtype=torch.float32,
                        device=device),
@@ -222,7 +264,7 @@ def init_audio_state(cfg: ServerConfig, num_channels: int, agc_window: int,
 def map_rows(fn, audio: AudioState) -> AudioState:
     """Apply fn(tensor, group) to every per-channel carry, where group
     is the AudioState field it belongs to ('chan', 'dc', 'agc', 'dec',
-    'st', 'rds' or 'de')."""
+    'st', 'nr', 'rds' or 'de')."""
     def part(x, name):
         if isinstance(x, torch.Tensor):
             return fn(x, name)
@@ -307,6 +349,7 @@ def audio_from_spectra(
     stereo_params: StereoParams | None = None,  # device WBFM stereo
     rds_params: RDSParams | None = None,        # device RDS subcarrier
     deemph_a: float | None = None,              # device de-emphasis pole
+    nr_params=None,             # NRParams / ANRParams / NBParams
 ) -> tuple[AudioState, torch.Tensor]:
     """Demod + DC/AGC chain over the B hops of a step, then the opt-in
     WBFM stages and int16.
@@ -330,7 +373,8 @@ def audio_from_spectra(
         full = reset == 1
         per_stream = full.repeat_interleave(nch) if nch > 1 else full
         masks = {"chan": full, "dc": full, "agc": reset >= 1, "st": full,
-                 "rds": full, "dec": per_stream, "de": per_stream}
+                 "nr": full, "rds": full, "dec": per_stream,
+                 "de": per_stream}
 
         def zero_rows(x, group):
             m = masks[group].reshape((-1,) + (1,) * (x.dim() - 1))
@@ -349,7 +393,7 @@ def audio_from_spectra(
     stream = audio_f.permute(1, 0, 2).reshape(c, b * half)
     dc_st, stream = dc_blocker(audio_state.dc, stream, dc_delay)
     if (decim_taps is None and stereo_params is None and rds_params is None
-            and deemph_a is None):
+            and deemph_a is None and nr_params is None):
         agc_st = agc_int16(audio_state.agc, stream.contiguous(), agc_params,
                            out16)
         return audio_state._replace(chan=chan_st, dc=dc_st, agc=agc_st), pwr
@@ -394,6 +438,29 @@ def audio_from_spectra(
             rds_out.copy_(q)
         else:
             rds_out.zero_()
+    nr_st = audio_state.nr
+    if nr_params is not None:
+        # the browser runs these on its decoded int16-scale audio, so
+        # they run on the stream lifted to that domain (x 65536/4,
+        # src/dsp.cpp:152), where spectral NR's integer rounding lands
+        # on the same grid; / scale is exact (a power of two).  Only
+        # active rows with the {"cmd":"nr"} opt-in take the result.
+        scale = 65536.0 / 4.0
+        nr_on = (chans.active & chans.nr)[:, None]
+        lifted = stream * scale
+        if isinstance(nr_params, NRParams):
+            # every channel, every step: the noise track stays warm
+            # across a listener's toggles
+            nr_st, den = nr_process(nr_st, nr_params, lifted, b)
+            stream = torch.where(nr_on, den / scale, stream)
+        elif chans.need_nr:
+            # skipped with no opted-in listener: the carries go stale
+            # (a reused slot is zeroed by the reset mask anyway)
+            if isinstance(nr_params, NBParams):
+                nr_st, den = nb_process(nr_st, nr_params, lifted)
+            else:
+                nr_st, den = anr_process(nr_st, nr_params, lifted)
+            stream = torch.where(nr_on, den / scale, stream)
     if stereo_params is not None and not stereo_done:
         # FM rows get pilot-PLL stereo; other modes pass mono to both ears
         st_st, stream = stereo_decode(st_st, stereo_params, stream, fm_mask)
@@ -423,7 +490,7 @@ def audio_from_spectra(
         out = stream.reshape(c, b, half).permute(1, 0, 2)
     out16.copy_(float_to_int16(out))
     return AudioState(chan=chan_st, dc=dc_st, agc=agc_st, dec=dec_st,
-                      st=st_st, rds=rds_st, de=de_st), pwr
+                      st=st_st, nr=nr_st, rds=rds_st, de=de_st), pwr
 
 
 class HopPipeline:
@@ -455,6 +522,7 @@ class HopPipeline:
         self.stereo_params = stereo_params_for(cfg)
         self.rds_params = rds_params_for(cfg)
         self.deemph_a = deemph_alpha_for(cfg)
+        self.nr_params = nr_params_for(cfg)
         # RDS baseband samples per channel per step (0 when off)
         self.rds_t = (cfg.hop_batch * (cfg.audio_fft_size // 2)
                       // self.rds_params.decim
@@ -562,7 +630,7 @@ class HopPipeline:
             cfg, self.agc_params, self.dc_delay, state.audio, spec, chans,
             state.frame, reset, audio16, rds8, decim_taps=self.decim_taps,
             stereo_params=self.stereo_params, rds_params=self.rds_params,
-            deemph_a=self.deemph_a)
+            deemph_a=self.deemph_a, nr_params=self.nr_params)
         pwr_out.copy_(pwr)
         return (HopState(frame=state.frame + b, audio=audio_st),
                 HopOutputs(audio=audio16, avg_power=pwr_out, wf=wf,
@@ -570,18 +638,20 @@ class HopPipeline:
 
 
 def channels_from_numpy(l, r, m_idx, mode, active, am_env=None, rds=None,
-                        device="cpu") -> ChannelTable:
+                        nr=None, device="cpu") -> ChannelTable:
     """Host-side helper: build a device ChannelTable from numpy arrays
-    (and decide on the host whether the AM PLL and RDS stages must
-    run)."""
+    (and decide on the host whether the AM PLL, RDS and noise-reduction
+    stages must run)."""
     am_env = np.zeros(np.shape(l), bool) if am_env is None else am_env
     rds = np.zeros(np.shape(l), bool) if rds is None else rds
+    nr = np.zeros(np.shape(l), bool) if nr is None else nr
     active_np = np.asarray(active, bool)
     mode_np = np.asarray(mode)
     need_pll = bool(np.any(active_np & (mode_np == MODE_AM)
                            & ~np.asarray(am_env, bool)))
     need_rds = bool(np.any(active_np & (mode_np == MODE_FM)
                            & np.asarray(rds, bool)))
+    need_nr = bool(np.any(active_np & np.asarray(nr, bool)))
     i32, b8 = torch.int32, torch.bool
     return ChannelTable(
         l=to_device(l, i32, device), r=to_device(r, i32, device),
@@ -589,4 +659,5 @@ def channels_from_numpy(l, r, m_idx, mode, active, am_env=None, rds=None,
         mode=to_device(mode, i32, device),
         active=to_device(active, b8, device),
         am_env=to_device(am_env, b8, device), rds=to_device(rds, b8, device),
-        need_pll=need_pll, need_rds=need_rds)
+        nr=to_device(nr, b8, device),
+        need_pll=need_pll, need_rds=need_rds, need_nr=need_nr)

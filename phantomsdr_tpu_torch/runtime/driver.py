@@ -30,6 +30,8 @@ import torch
 
 from ..config import ServerConfig
 from ..ops.convert import wire_dtype, host_preconvert
+from ..ops.cuda import all_kernels
+from ..ops.cuda.build import build_all
 from ..pipeline import (
     HopPipeline, WaterfallViews, channels_from_numpy, pad_due_positions,
     to_device, unpack_outputs, waterfall_due_positions,
@@ -251,7 +253,7 @@ class DSPDriver:
             rows = arrays if k is None else tuple(a[:k] for a in arrays)
             # registry columns: l, r, m_idx, mode, active, nr, rds, am_env
             self._table = channels_from_numpy(*rows[:5], am_env=rows[7],
-                                              rds=rows[6],
+                                              rds=rows[6], nr=rows[5],
                                               device=self.device)
             self._table_key = (v, k)
         if self._np_views is not None:
@@ -303,6 +305,11 @@ class DSPDriver:
             # serving, so cuFFT plans, kernel builds and allocator pools
             # exist before the first listener arrives
             t0 = time.monotonic()
+            if self.device.type == "cuda":
+                # the warm-up's empty table runs no AM, RDS or noise
+                # stage: build their kernels here, not on a listener's
+                # first opt-in
+                build_all(all_kernels())
             self._refresh_table()
             zeros = np.zeros(self.source.block_wire + self.source.wire_per_hop,
                              self.source.dtype)

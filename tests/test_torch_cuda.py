@@ -2,7 +2,8 @@
 at shapes the main path does not reach (a pyramid deeper than one
 chunk, rows narrower than a chunk, other rolls, misaligned input and
 output rows, real input, an AGC window too large for shared memory;
-the WBFM kernels at odd lengths and with masked rows).  They need a
+the WBFM kernels at odd lengths and with masked rows; the noise
+processors at other orders, blocks and frame counts).  They need a
 CUDA device and skip elsewhere; run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,8 +18,12 @@ import torch
 
 from phantomsdr_tpu_torch.ops.agc import AGCState, agc_process, make_agc_params
 from phantomsdr_tpu_torch.ops.channelizer import float_to_int16
-from phantomsdr_tpu_torch.ops.cuda import agc, deemph, pilot, pll, waterfall
+from phantomsdr_tpu_torch.ops.cuda import (
+    agc, anr, deemph, nb, nr, pilot, pll, waterfall,
+)
 from phantomsdr_tpu_torch.ops.deemph import deemph_alpha
+from phantomsdr_tpu_torch.ops.nb import fir_fresh
+from phantomsdr_tpu_torch.ops.nr import make_nr_params
 from phantomsdr_tpu_torch.ops.polyphase import design_lowpass, fir
 from phantomsdr_tpu_torch.ops.stereo import make_stereo_params
 
@@ -367,3 +372,207 @@ def test_fir_on_the_card_is_full_float32(dev):
     want = np.stack([np.convolve(r, lp.astype(np.float64), "valid")[::32]
                      for r in xn])
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
+
+
+# ------------------------------------------------------ noise processors
+
+def nr_inputs(c, f, n, dev, seed):
+    """Powers (exponential, with bursts and zero bins) and carries for
+    K-NR, channels at every stage of the startup: fresh, accumulating,
+    the 20th frame, running."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # exponential powers: -log of a uniform in (0, 1], never inf
+    x_pow = ((1 - torch.rand(n, c, f, device=dev, generator=g)).log().neg()
+             * 1e6
+             * (1 + 50 * (torch.rand(n, c, f, device=dev, generator=g)
+                          < 0.05)))
+    x_pow[:, :, 0] = 0.0
+    stage = (torch.arange(c, device=dev, dtype=torch.int32) * 7) % 22
+    carries = (stage,) + tuple(
+        torch.rand(c, f, device=dev, generator=g) * s
+        for s in (1e6, 1e6, 0.5, 3.0))
+    return x_pow.contiguous(), carries
+
+
+@pytest.mark.parametrize("c,f,n", [(128, 180, 36), (5, 257, 7),
+                                   (3, 5034, 8), (1, 1, 25)])
+def test_nr_kernel_matches_plain(dev, c, f, n):
+    """Over two calls that carry the state: the gains and float carries
+    within rtol 1e-5 (the same float32 operations in the same order;
+    expf may round otherwise), stage and running flags equal."""
+    x_pow, carries = nr_inputs(c, f, 2 * n, dev, c * f)
+    p = make_nr_params(max(f, 2))
+    kc = pc = carries
+    for k in range(2):
+        xp = x_pow[k * n:(k + 1) * n].contiguous()
+        before = nr.KERNEL.launches
+        kc, kg, kr = nr.gain_frames(kc, p.alpha, p.xih1r, p.pfac, xp)
+        pc, pg, pr = nr.gain_frames_plain(pc, p.alpha, p.xih1r, p.pfac, xp)
+        assert nr.KERNEL.launches == before + 1
+        assert torch.equal(kr, pr) and torch.equal(kc[0], pc[0])
+        torch.testing.assert_close(kg, pg, rtol=1e-5, atol=0)
+        for a, b in zip(kc[1:], pc[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+
+
+def test_nr_chain_probe_runs_the_kernels_loop(dev):
+    """On powers that repeat frame after frame, the probe's carries (the
+    first frame's power held in a register) equal the kernel's."""
+    x_pow, carries = nr_inputs(16, 180, 1, dev, 3)
+    x_pow = x_pow.expand(36, 16, 180).contiguous()
+    p = make_nr_params(180)
+    got = nr.chain_probe(carries, p.alpha, p.xih1r, p.pfac, x_pow)
+    want, _, _ = nr.gain_frames(carries, p.alpha, p.xih1r, p.pfac, x_pow)
+    for a, b in zip(got, want[1:]):
+        assert torch.equal(a, b)
+
+
+def anr_state(c, taps, delay, dev, seed, reset_every=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hist = torch.randn(c, taps + delay, device=dev, generator=g) * 1000
+    w = torch.randn(c, taps, device=dev, generator=g) * 0.01
+    lidx = torch.full((c,), 120.0, device=dev)
+    ngamma = torch.full((c,), 0.001, device=dev)
+    if reset_every:
+        z = torch.arange(c, device=dev) % reset_every == 0
+        hist[z], w[z], lidx[z], ngamma[z] = 0, 0, 0, 0
+    return hist, w, lidx, ngamma
+
+
+@pytest.mark.parametrize("c,t,notch,two_mu,taps,delay", [
+    (128, 6480, False, 1e-4, 64, 8), (128, 6480, True, 1e-4, 64, 8),
+    (6, 1000, True, 1e-4, 64, 8), (4, 3000, False, 8e-3, 64, 8),
+    (3, 2500, False, 1e-4, 128, 128), (5, 700, True, 1e-3, 16, 2),
+])
+def test_anr_kernel_matches_plain(dev, c, t, notch, two_mu, taps, delay):
+    """Over two calls that carry the state (rows of a reset among
+    them): outputs and carries within 1e-4 * max|x|, the sums of the
+    taps-long products adding in another order."""
+    g = torch.Generator(device=dev).manual_seed(t + taps)
+    tt = torch.arange(2 * t, device=dev) / 12000.0
+    x = (3000 * torch.sin(2 * np.pi * 800 * tt)[None]
+         + 1000 * torch.randn(c, 2 * t, device=dev, generator=g))
+    bsz = max(1, min(256, t, int(0.5 / two_mu)))
+    tol = 1e-4 * float(x.abs().max())
+    kc = pc = anr_state(c, taps, delay, dev, t, reset_every=3)
+    for k in range(2):
+        xs = x[:, k * t:(k + 1) * t].contiguous()
+        before = anr.KERNEL.launches
+        kc, ko = anr.lms_blocks(*kc, xs, taps, delay, two_mu, 0.1, notch, bsz)
+        pc, po = anr.lms_blocks_plain(*pc, xs, taps, delay, two_mu, 0.1,
+                                      notch, bsz)
+        assert anr.KERNEL.launches == before + 1
+        assert float((ko - po).abs().max()) <= tol
+        for a, b in zip(kc, pc):
+            assert float((a - b).abs().max()) <= tol
+
+
+def test_anr_chain_probe_runs_the_kernels_loop(dev):
+    """On a stream that repeats its first block, the probe (which keeps
+    the first block staged) ends on the kernel's carries bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    c, bsz, blocks = 8, 256, 25
+    first = torch.randn(c, bsz, device=dev, generator=g) * 1000
+    x = first.repeat(1, blocks).contiguous()
+    state = anr_state(c, 64, 8, dev, 12)
+    got = anr.chain_probe(*state, x, 64, 8, 1e-4, 0.1, False, bsz)
+    want, _ = anr.lms_blocks(*state, x, 64, 8, 1e-4, 0.1, False, bsz)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+
+
+def nb_frame(c, t, dev, seed, clicks=8):
+    """[C, t] voice-like rows with clicks a few samples wide at random
+    places (some close together)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tt = torch.arange(t, device=dev) / 12000.0
+    x = (3000 * torch.sin(2 * np.pi * 500 * tt)[None]
+         * (1 + torch.arange(c, device=dev)[:, None] % 3)
+         + 250 * torch.randn(c, t, device=dev, generator=g))
+    for _ in range(clicks):
+        at = torch.randint(0, t - 4, (c,), device=dev, generator=g)
+        for k in range(3):
+            x[torch.arange(c, device=dev), at + k] += 20000
+    return x
+
+
+@pytest.mark.parametrize("c,t,order,samples", [
+    (128, 6480, 32, 11), (6, 2000, 40, 21), (5, 1500, 1, 3),
+    (4, 3000, 16, 201), (3, 40272, 32, 11),
+])
+def test_nb_kernel_matches_plain(dev, c, t, order, samples):
+    """Two chained calls of the blanker: launch 1 against the plain LPC
+    fit (coefficients of order 1 within 1e-3, the lags adding in another
+    order), launch 2 against the plain search and repairs on the same
+    inputs: impulse counts and positions equal, the repaired buffer
+    within 1e-5 * max|x|; the whole nb_process counts both launches."""
+    from phantomsdr_tpu_torch.ops.nb import (
+        init_nb_state, make_nb_params, nb_process,
+    )
+
+    p = make_nb_params(5.0, order, samples)
+    il, lo = p.impulse_len, order + (p.impulse_len - 1) // 2
+    x = nb_frame(c, 2 * t, dev, t + order)
+    tol = 1e-5 * float(x.abs().max())
+    state = init_nb_state(c, p, dev)
+    for k in range(2):
+        xs = x[:, k * t:(k + 1) * t].contiguous()
+        wb = torch.cat([state.tail, xs], 1).contiguous()
+        before = (nb.LPC_KERNEL.launches, nb.REPAIR_KERNEL.launches)
+        got = nb.lpc_coeffs(wb, t, order, il)
+        for a, b in zip(got, nb.lpc_coeffs_plain(wb, t, order, il)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+        lpcs, cf, cb = got
+        temp = fir_fresh(lpcs, fir_fresh(lpcs.flip(1), wb[:, lo:lo + t]))
+        temp = temp.contiguous()
+        wbf, kcount, kpos, kthr = nb.repair(wb, temp, lpcs, cf, cb, 5.0,
+                                            order, il)
+        pwbf, pcount, ppos, pthr = nb.repair_plain(wb, temp, lpcs, cf, cb,
+                                                   5.0, order, il)
+        assert (nb.LPC_KERNEL.launches, nb.REPAIR_KERNEL.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(kcount, pcount) and torch.equal(kpos, ppos)
+        torch.testing.assert_close(kthr, pthr, rtol=1e-5, atol=0)
+        assert float((wbf - pwbf).abs().max()) <= tol
+        new, out = nb_process(state, p, xs)
+        assert nb.REPAIR_KERNEL.launches == before[1] + 2
+        assert new.tail.shape == state.tail.shape and out.shape == xs.shape
+        state = state._replace(tail=wbf[:, t:].contiguous())
+    assert int(kcount.max()) > 0
+
+
+def test_nb_lpc_kernel_matches_plain(dev):
+    """Launch 1 alone: lpcs and the prediction matrices against the
+    plain Levinson and recursions (atol 1e-4 on coefficients of order 1:
+    the lags add in another order)."""
+    x = nb_frame(16, 6554, dev, 5)
+    got = nb.lpc_coeffs(x, 6480, 32, 11)
+    want = nb.lpc_coeffs_plain(x, 6480, 32, 11)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+def test_nb_repair_chain_probe_runs(dev):
+    """The probe repairs 20 windows PL + 1 apart and leaves the rest."""
+    c, t, order, il = 4, 2000, 32, 11
+    wb = nb_frame(c, t + 2 * order + 10, dev, 8)
+    lpcs, cf, cb = nb.lpc_coeffs(wb, t, order, il)
+    temp = torch.zeros(c, t, device=dev)
+    out = nb.repair_chain_probe(wb, temp, lpcs, cf, cb, order, il)
+    changed = (out != wb).any(0).nonzero().flatten()
+    assert torch.isfinite(out).all()
+    assert int(changed.min()) >= order + 5 and int(changed.max()) < (
+        order + 5 + 19 * 6 + il)
+
+
+def test_failed_launch_raises_without_fallback(dev):
+    """A CUDA tensor whose launch the kernel refuses (K-ANR with a delay
+    line too long for its 48 KB of shared memory) raises; nothing falls
+    back to the plain version, and the launch is not counted."""
+    c, taps, delay = 2, 4000, 8
+    state = anr_state(c, taps, delay, dev, 1)
+    x = torch.zeros(c, 512, device=dev)
+    before = anr.KERNEL.launches
+    with pytest.raises(RuntimeError, match="anr_launch failed"):
+        anr.lms_blocks(*state, x, taps, delay, 1e-4, 0.1, False, 256)
+    assert anr.KERNEL.launches == before

@@ -431,3 +431,137 @@ def test_wbfm_interop_round_trip(wbfm):
     table = interop.state_from_numpy(jax.tree.map(np.asarray, jt))
     assert table.need_rds and not table.need_pll
     np.testing.assert_array_equal(table.rds.numpy(), np.asarray(jt.rds))
+
+
+# ------------------------------------------------------ noise reduction
+
+NR_ALGOS = ("spectral", "lms", "notch", "nb")
+
+
+class NrPair:
+    """The small config with [input] nr = true and ``algo``: the JAX and
+    the PyTorch pipeline, half the rows opted in (every other row)."""
+
+    def __init__(self, algo):
+        d = cfg_dict()
+        d["input"] = {**d["input"], "nr": True, "nr_algo": algo}
+        self.jc, self.tc = jconfig(d), config_from_dict(d)
+        self.jp = JPipeline(self.jc)
+        self.tp = HopPipeline(self.tc, device="cpu")
+
+    def tables(self, k=None):
+        arrays = table_arrays(self.jc)
+        arrays["nr"] = np.arange(self.jc.max_channels) % 2 == 0
+        if k is not None:
+            arrays = {key: v[:k] for key, v in arrays.items()}
+        return jtable(**arrays), channels_from_numpy(**arrays)
+
+    def warm(self, steps=WARM_STEPS):
+        """JAX state after `steps` steps, and the same state in the port
+        (interop), with the stream to go on with."""
+        stream = Stream(self.jc, seed=21)
+        jt, _ = self.tables()
+        js = self.jp.init_state()
+        for _ in range(steps):
+            js, _ = self.jp.step(js, jnp.asarray(stream.next()), jt,
+                                 waterfall="off")
+        return js, interop.state_from_numpy(jax.tree.map(np.asarray, js)), \
+            stream
+
+    def steps(self, js, ts, stream, n, k=None, reset=None):
+        jt, tt = self.tables(k)
+        for s in range(n):
+            raw = stream.next()
+            jr = tr = None
+            if reset is not None and s == 0:
+                jr, tr = jnp.asarray(reset), torch.from_numpy(reset)
+            js, jo = self.jp.step(js, jnp.asarray(raw), jt, waterfall="off",
+                                  reset=jr)
+            ts, to = self.tp.step(ts, torch.from_numpy(raw), tt,
+                                  waterfall="off", reset=tr)
+            ja = np.asarray(jo.audio).astype(int)
+            ta = to.audio.numpy().astype(int)
+            assert ta.shape == ja.shape
+            assert np.abs(ta - ja).max() <= 1
+        return js, ts, ja
+
+
+@pytest.fixture(scope="module", params=NR_ALGOS)
+def nr_pair(request):
+    return NrPair(request.param)
+
+
+def test_nr_steps_match_jax(nr_pair):
+    """Three steps of the whole step with the configured noise
+    processor from a warm JAX state carried over; the processor's carries
+    come back as JAX has them, and opted-in rows differ from the rest."""
+    js, ts, stream = nr_pair.warm()
+    js, ts, audio = nr_pair.steps(js, ts, stream, 3)
+    assert np.abs(audio).max() > 1000
+    got = interop.state_to_numpy(ts).audio.nr
+    want = js.audio.nr
+    assert type(got).__name__ == type(want).__name__
+    for name in got._fields:
+        w = np.asarray(getattr(want, name))
+        scale = max(float(np.abs(w).max()), 1.0)
+        np.testing.assert_allclose(getattr(got, name), w, rtol=1e-3,
+                                   atol=1e-4 * scale, err_msg=name)
+
+
+def test_nr_reset_and_resize_match_jax():
+    """Spectral NR (the largest carries): a full reset of rows 0 and 3
+    re-arms them, then a shrink to 8 rows and a grow back to 16."""
+    pair = NrPair("spectral")
+    js, ts, stream = pair.warm(3)
+    reset = np.zeros(pair.jc.max_channels, np.int32)
+    reset[[0, 3]] = 1
+    js, ts, _ = pair.steps(js, ts, stream, 1, reset=reset)
+    assert int(ts.audio.nr.stage[0]) == 4 and int(ts.audio.nr.stage[1]) > 4
+    for k in (8, 16):
+        js = pair.jp.resize_channel_rows(js, k)
+        ts = pair.tp.resize_channel_rows(ts, k)
+        assert ts.audio.nr.xt.shape[0] == k
+        js, ts, _ = pair.steps(js, ts, stream, 1, k=k)
+
+
+def test_nr_interop_round_trip_and_table():
+    pair = NrPair("nb")
+    js = jax.tree.map(np.asarray, pair.jp.init_state())
+    back = interop.state_to_numpy(interop.state_from_numpy(js)).audio.nr
+    np.testing.assert_array_equal(back.tail, js.audio.nr.tail)
+    jt, _ = pair.tables()
+    table = interop.state_from_numpy(jax.tree.map(np.asarray, jt))
+    assert table.need_nr
+    np.testing.assert_array_equal(table.nr.numpy(), np.asarray(jt.nr))
+    assert not channels_from_numpy(
+        **{**table_arrays(pair.jc), "nr": np.zeros(16, bool)}).need_nr
+
+
+@pytest.mark.parametrize("extra", [
+    {"nr": True},
+    {"nr": True, "nr_algo": "LMS"},
+    {"nr": True, "nr_algo": "notch", "nr_two_mu": 1e-3},
+    {"nr": True, "nr_algo": "bogus"},
+    {"nr": False, "nr_algo": "bogus"},
+    {"nr": True, "stereo": True, "audio_sps": 192000},
+    {"nr": True, "nr_algo": "nb", "nb_samples": 2},
+    {"nr": True, "nr_algo": "nb", "nb_samples": 201},
+    {"nr": True, "nr_algo": "nb", "nb_samples": 202},
+    {"nr": True, "nr_algo": "nb", "nb_taps": 0},
+    {"nr": True, "nr_algo": "nb", "nb_taps": 40},
+    {"nr": True, "nr_algo": "nb", "nb_taps": 41},
+    {"nr": False, "nr_algo": "nb", "nb_taps": 41},
+])
+def test_nr_config_decisions_match_jax(extra):
+    """Both packages accept and refuse the same noise-reduction settings,
+    with the same message."""
+    d = cfg_dict()
+    d["input"] = {**d["input"], **extra}
+    outcome = []
+    for make in (jconfig, config_from_dict):
+        try:
+            cfg = make(d)
+            outcome.append(("ok", cfg.nr, cfg.nr_algo))
+        except ValueError as e:
+            outcome.append(("refused", str(e)))
+    assert outcome[0] == outcome[1]

@@ -3,7 +3,7 @@ SpectrumServer, driven by a websocket client that decodes the FLAC
 audio of an AM tone capture (the flow of tools/verify/client.py's tone
 check); plus the package's import boundary, its device default, the
 config-time rejection of the stages it does not implement yet and the
-validations of the WBFM options it does."""
+validations of the WBFM and noise-reduction options it does."""
 
 import asyncio
 import io
@@ -140,7 +140,8 @@ WIDEBAND = {"sps": 20_000_000, "fft_size": 1 << 20, "audio_sps": 192000,
     # the JAX package's validations of the WBFM options
     pytest.param({"stereo": True}, "stereo=true needs audio_sps",
                  id="extra0-stereo"),
-    pytest.param({"nr": True}, "nr", id="extra1-nr"),
+    pytest.param({"nr": True, "nr_algo": "bogus"},
+                 "nr_algo must be spectral/lms/notch/nb", id="extra1-nr"),
     # the wideband profile's audio block (5,034) allows only /2: 96 kS/s
     # of RDS baseband, over MAX_BASEBAND_SPS
     pytest.param({**WIDEBAND, "rds": True}, "rds=true.*decimation by 2",
@@ -153,10 +154,16 @@ WIDEBAND = {"sps": 20_000_000, "fft_size": 1 << 20, "audio_sps": 192000,
     pytest.param({"waterfall_compression": "av1"}, "av1", id="extra5-av1"),
     pytest.param({"nr": True, "stereo": True, "audio_sps": 192000},
                  "cannot be combined", id="extra6-nr+stereo"),
+    pytest.param({"nr": True, "nr_algo": "nb", "nb_samples": 1},
+                 r"nb_samples must be in \[3, 201\]",
+                 id="extra7-nb_samples"),
+    pytest.param({"nr": True, "nr_algo": "nb", "nb_taps": 41},
+                 r"nb_taps must be in \[1, 40\]", id="extra8-nb_taps"),
 ])
 def test_unported_stages_are_rejected_at_config_time(extra, what):
-    """Options still to port (nr, av1) and invalid settings of the
-    ported WBFM options are refused when the config loads."""
+    """Options still to port (av1) and invalid settings of the ported
+    WBFM and noise-reduction options are refused when the config
+    loads."""
     with pytest.raises(ValueError, match=what):
         tone_config(**extra)
 
