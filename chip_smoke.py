@@ -25,7 +25,10 @@ Phases, one JSON line each (any failure exits non-zero):
              one recorded launch and profiler_records how many launches
              it recorded (it loses some of the port's)
              K-PILOT, K-DEEMPH and K-AGC's float mode at the shapes of
-             the wideband WBFM step (128 channels x 40,272 samples);
+             the wideband WBFM step (128 channels x 40,272 samples),
+             K-PILOT's sine against sinf on every float32 of [-0, 2pi]
+             and its chain floor beside the old one (the earlier
+             design's loop body: libdevice sinf, the wrap a branch);
              K-NR, K-ANR and K-NB at the shapes of the bench config
              with [input] nr (128 channels x 36 frames x 180 samples),
              over two calls that carry their state, K-NB's line with
@@ -700,7 +703,10 @@ def phase_kernels(cfg, raw0):
             lambda: agc.agc_int16(state, x, params, out_k)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         chain_note=f"{n} dependent gain steps per channel"))
+    agc_int16_row = rows_out[-1]
     rows_out += wbfm_kernel_rows(gen)
+    # the bench-shape int16 kernel beside the float mode's row (its last)
+    rows_out[-1]["int16_bench_kernel_ms"] = agc_int16_row["kernel_ms"]
     rows_out += nr_kernel_rows(cfg, gen)
     for row in rows_out:
         row["bound_us"] = row["bound_ms"] * 1e3
@@ -772,6 +778,14 @@ def wbfm_kernel_rows(gen):
                              f"{PLL_ATOL} * {scale}")
     ys, xs = segs[1]
     del segs, got, want
+    # the kernel's sine against libdevice sinf on every float32 of the
+    # wrapped phase's range [-0, 2*pi]
+    sin_checked, sin_mismatches = pilot.sin_check()
+    want_checked = int(np.float32(2 * np.pi).view(np.uint32)) + 2
+    if sin_mismatches or sin_checked != want_checked:
+        raise AssertionError(f"K-PILOT sine vs sinf: {sin_mismatches} of "
+                             f"{sin_checked} differ (want 0 of "
+                             f"{want_checked})")
     b_ms, b_by = bound_ms(4 * c * n * 4 + 4 * c * 4 + c,
                           c * n * PILOT_OPS_PER_SAMPLE)
 
@@ -796,6 +810,11 @@ def wbfm_kernel_rows(gen):
             zero, zero, sp.f_nom, ys, xs=xs, fm_mask=fm), 1, warmup=0),
         chain_floor_ms=device_ms(lambda: pilot.chain_probe(ys, zero, zero,
                                                            sp.f_nom)),
+        # the old floor: the earlier design's loop body (libdevice sinf
+        # at the step's start, the wrap a branch) in the same probe
+        chain_floor_ms_old=device_ms(lambda: pilot.chain_probe(
+            ys, zero, zero, sp.f_nom, pilot.BODY_EARLIER)),
+        sin_checked=sin_checked, sin_mismatches=sin_mismatches,
         **profiled(run_pilot),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         chain_note=f"{n} dependent loop steps per channel"))
@@ -852,7 +871,7 @@ def wbfm_kernel_rows(gen):
     del xd
 
     # ---- K-AGC float mode: a 192 kHz window (38,400 samples) over the
-    # step's 40,272, the device scratch path, mixed warm-up states
+    # step's 40,272, mixed warm-up states
     params = make_agc_params(fs)
     w = params.window
     xa = torch.randn(c, n, device="cuda", generator=gen) * 0.05

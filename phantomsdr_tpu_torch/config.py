@@ -272,6 +272,20 @@ class ServerConfig:
                     f"{MAX_BASEBAND_SPS:.0f}); pick an fft_size whose "
                     f"audio block has a larger power-of-two factor")
 
+        from .ops.agc import make_agc_params
+        from .ops.cuda.agc import max_stream
+
+        # K-AGC holds its window max in shared memory, so the audio of
+        # one step per channel has a cap: fail here, not at its launch
+        window = make_agc_params(self.audio_sps).window
+        step = self.hop_batch * (self.audio_fft_size // 2)
+        if step > max_stream(window):
+            raise ValueError(
+                f"[tpu] hop_batch={self.hop_batch}: {step} audio samples "
+                f"per channel a step; the AGC takes at most "
+                f"{max_stream(window)} at audio_sps={self.audio_sps} "
+                f"(window {window}); lower hop_batch")
+
         unsupported = unsupported_options(self)
         if unsupported:
             raise ValueError(

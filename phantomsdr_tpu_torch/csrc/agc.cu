@@ -16,7 +16,8 @@
 // output buffer (t = b*half + s), with the new tail, gain and seen.
 // agc_float_launch runs the same kernel compiled with kFloat: it stores
 // out[t] itself as float32 into a [C, L] buffer (the input of the WBFM
-// stages, which convert to int16 after them) and is otherwise the same.
+// and noise-reduction stages, which convert to int16 after them) and is
+// otherwise the same.
 //
 // Bound: the gain recursion, a dependent chain of L steps per channel
 // (a subtract, a multiply, a subtract and a select per step).
@@ -25,30 +26,34 @@
 // against.
 //
 // Design: one kernel, warp-specialised, so that the parallel work runs
-// behind the chain instead of before and after it.
-// - All 512 threads load y and take the window max's parts: per aligned
-//   block of 128 samples (four a lane, in turn, then across the warp by
-//   shuffles) the prefix max P and the suffix max Q of |y| inside the
-//   block and the block max, and a sparse table over the block maxes
-//   (level k = max of 2^k blocks; 5 levels at W = 2400) follows.
-//   peak[t] is then exact from four reads: Q[t], P[t+W-1] and two
-//   entries of one level covering the whole blocks between them.
+// behind the chain instead of before and after it, and everything it
+// keeps lives in shared memory at any window (38,400 samples at 192 kHz).
+// - All 512 threads read y once: the max of |y| over each aligned block
+//   of 128 samples (four a lane, then across the warp by shuffles), and
+//   the new tail; a sparse table over the block maxes follows (level k
+//   = max of 2^k blocks; 5 levels at W = 2400, 9 at 38,400).
 // - Warp 0's lane 0 then runs the chain; its other lanes exit, so that
 //   the chain has no lane to reconverge with (no convergence barriers;
 //   see csrc/pll.cu).  From t0 = clamp(W-1-seen, 0, L) on (before it the
 //   gain is frozen and the output 0) it has no branch: it reads desired
-//   four at a time (float4, five groups in flight) and writes each gain
+//   four at a time (float4, five groups in flight) from a ring of
+//   kRing chunks of kChunk samples in shared memory and writes each gain
 //   in its place.
-// - Warps 1-15 compute desired chunk by chunk (kChunk samples) into Q's
-//   place and flag each chunk as ready, so the chain starts once the
-//   first chunk exists; then they write int16 for every chunk whose
-//   gains the chain has flagged as done.
+// - Warps 1-15 fill the ring kRing - 1 chunks ahead of the chain.  For
+//   the chunk's outputs t they read y again (from L2) and form, block
+//   by block, the suffix max Q of |y| inside t's block and the prefix
+//   max P inside the block of t+W-1 (at most 9 blocks each); then
+//   peak[t] = max(Q[t], P[t+W-1], two table entries over the whole
+//   blocks between), exact because max is associative (a window inside
+//   one block, W <= 128, is read directly).  Behind the chain they write
+//   the output of every chunk whose gains it has flagged as done, which
+//   frees the chunk's slot for the next chunk ahead.
 // The flags are shared-memory words (a releasing store, an acquiring
 // load); the workers synchronise among themselves with named barrier 1.
-// P, Q and the table (73 KB at W = 2400, L = 6480) live in shared
-// memory, or in a device scratch buffer the wrapper passes when they
-// exceed it.  Round-to-nearest intrinsics keep the float32 operations
-// separate, like the plain version.
+// Shared memory: the table (levels x blocks of W-1+L samples: 22 KB at
+// W = 38,400, L = 40,272), the ring and the Q and P of one chunk (25 KB).
+// Round-to-nearest intrinsics keep the float32 operations separate, like
+// the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,18 +66,15 @@ constexpr int kWorkers = kThreads - 32;  // warps 1..15
 constexpr int kSpan = 4;                 // samples per lane in a block of the window max
 constexpr int kBlock = 32 * kSpan;       // samples per block
 static_assert(kSpan == 4, "a lane stores its span as one float4");
-constexpr int kUnroll = 6;               // blocks in flight per warp while loading y
-constexpr int kChunk = 1024;             // samples per ready/done flag
+constexpr int kUnroll = 6;               // blocks in flight per warp while reading y
+constexpr int kChunk = 1024;             // samples per ring slot and per ready/done flag
+constexpr int kRing = 4;                 // ring slots: the workers run kRing-1 chunks ahead
 constexpr int kAhead = 6;                // float4 groups of desired the chain holds
+constexpr int kChunkBlocks = kChunk / kBlock;
+static_assert(kChunk % kBlock == 0, "a chunk is whole blocks");
 constexpr int kMaxDevices = 64;
 
 __host__ __device__ __forceinline__ int blocks_of(int m) { return (m + kBlock - 1) / kBlock; }
-
-// Floats of the P and of the Q buffer for m = W-1+L samples: whole
-// blocks, plus the chain's read-ahead past the end (4 * kAhead - 4).
-__host__ __device__ __forceinline__ int buffer_floats(int m) {
-    return blocks_of(m) * kBlock + 4 * kAhead;
-}
 
 // Levels of the sparse table: enough for the most whole blocks a window
 // can cover, (W+kBlock-2)/kBlock - 1.
@@ -84,14 +86,17 @@ __host__ __device__ __forceinline__ int table_levels(int window) {
     return k;
 }
 
-// Floats per channel of P, Q and the table (shared memory or scratch),
-// a multiple of four so that every channel's P and Q stay 16-byte aligned.
-__host__ __device__ __forceinline__ long long channel_floats(int window, int len) {
-    const int m = window - 1 + len;
-    const long long n = 2LL * buffer_floats(m) +
-                        static_cast<long long>(table_levels(window)) * blocks_of(m);
-    return (n + 3) & ~3LL;
+// Floats of the table, padded to a multiple of four so that the ring
+// after it stays 16-byte aligned.
+__host__ __device__ __forceinline__ int table_floats(int window, int len) {
+    return (table_levels(window) * blocks_of(window - 1 + len) + 3) & ~3;
 }
+
+// Floats of the ring with the chain's read-ahead past its end
+// (4 * kAhead - 4), then Q of one chunk's blocks and P of the (at most
+// kChunkBlocks + 1) blocks its window ends fall in.
+constexpr int kRingFloats = kRing * kChunk + 4 * kAhead;
+constexpr int kStageFloats = kChunk + (kChunkBlocks + 1) * kBlock;
 
 __device__ __forceinline__ float4 load4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
@@ -154,7 +159,7 @@ __device__ __forceinline__ void workers_sync() {
 // written in its place.  Desired is read four samples at a time, kAhead
 // - 1 groups ahead of use (a ring of registers, fully unrolled), so that
 // shared-memory latency stays off the chain; reads past e stay inside
-// the buffer's padding.
+// the ring's padding.
 __device__ __forceinline__ float chain(float* d, int s, int e, float g,
                                        float attack, float release) {
     int t = s;
@@ -182,19 +187,46 @@ __device__ __forceinline__ float chain(float* d, int s, int e, float g,
     return g;
 }
 
-// kScratch: P, Q and the table are in scratch (device memory), not in
-// shared memory; a compile-time choice, so that the chain's reads are
-// shared-memory loads when they can be.  kFloat: the output is out[t]
-// as float32 into out_f [C, L]; else int16 into out [B, C, half].
-template <bool kScratch, bool kFloat>
+// |y| over one block of kBlock samples, kSpan a lane: with kSuffix
+// the max from each sample to the block's end (Q), else from the
+// block's start to each sample (P), each lane's kSpan in turn and then
+// across the warp by shuffles; stored at dst (kSpan floats a lane).
+template <bool kSuffix>
+__device__ __forceinline__ void block_scan(const float* tail, const float* x, int w1,
+                                           int m, int block, int lane, float* dst) {
+    const int base = block * kBlock + lane * kSpan;
+    float p[kSpan];
+#pragma unroll
+    for (int s = 0; s < kSpan; ++s) p[s] = base + s < m ? fabsf(sample(tail, x, w1, base + s)) : 0.0f;
+#pragma unroll
+    for (int s = 1; s < kSpan; ++s) {
+        if (kSuffix) p[kSpan - 1 - s] = fmaxf(p[kSpan - 1 - s], p[kSpan - s]);
+        else p[s] = fmaxf(p[s], p[s - 1]);
+    }
+    float h = kSuffix ? p[0] : p[kSpan - 1];  // max over lanes lane..31 (Q), 0..lane (P)
+#pragma unroll
+    for (int s = 1; s < 32; s *= 2) {
+        const float o = kSuffix ? __shfl_down_sync(0xffffffffu, h, s)
+                                : __shfl_up_sync(0xffffffffu, h, s);
+        if (kSuffix ? lane + s < 32 : lane >= s) h = fmaxf(h, o);
+    }
+    // |y| >= 0, so 0 is the max of no lanes
+    float o = kSuffix ? __shfl_down_sync(0xffffffffu, h, 1) : __shfl_up_sync(0xffffffffu, h, 1);
+    if (kSuffix ? lane == 31 : lane == 0) o = 0.0f;
+    store4(dst + lane * kSpan, make_float4(fmaxf(p[0], o), fmaxf(p[1], o),
+                                           fmaxf(p[2], o), fmaxf(p[3], o)));
+}
+
+// kFloat: the output is out[t] as float32 into out_f [C, L]; else int16
+// into out [B, C, half].
+template <bool kFloat>
 __global__ void __launch_bounds__(kThreads)
 agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
            const float* __restrict__ gain0, const int* __restrict__ seen0,
            int channels, int len, int window, float attack, float release,
            float level, int half, int16_t* __restrict__ out,
            float* __restrict__ out_f, float* __restrict__ tail_out,
-           float* __restrict__ gain_out, int* __restrict__ seen_out,
-           float* scratch) {
+           float* __restrict__ gain_out, int* __restrict__ seen_out) {
     extern __shared__ __align__(16) float smem[];
     __shared__ int ready;  // chunks whose desired is written
     __shared__ int done;   // chunks whose gains are written
@@ -202,18 +234,18 @@ agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
     const int w1 = window - 1;
     const int m = w1 + len;
     const int nb = blocks_of(m);
-    float* pre = kScratch ? scratch + channel_floats(window, len) * c : smem;
-    float* d = pre + buffer_floats(m);  // Q, then desired, then gains
-    float* table = d + buffer_floats(m);
+    float* table = smem;
+    float* ring = smem + table_floats(window, len);  // desired, then gains
+    float* qs = ring + kRingFloats;                   // Q of one chunk's blocks
+    float* ps = qs + kChunk;                          // P of its window ends' blocks
     const float* xc = x + static_cast<long long>(c) * len;
     const float* tc = tail + static_cast<long long>(c) * w1;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     if (threadIdx.x == 0) ready = done = 0;
 
-    // |y| per block of kBlock samples (kSpan a lane): prefix max,
-    // suffix max and block max, each lane's kSpan in turn and then
-    // across the warp by shuffles
+    // the max of |y| per block of kBlock samples (kSpan a lane, then
+    // across the warp), and the new tail
     for (int j0 = warp; j0 < nb; j0 += kUnroll * kWarps) {
         float v[kUnroll][kSpan];
 #pragma unroll
@@ -228,39 +260,16 @@ agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
         for (int u = 0; u < kUnroll; ++u) {
             const int j = j0 + u * kWarps;
             if (j >= nb) break;  // warp-uniform
-            const int base = j * kBlock + lane * kSpan;
-            float p[kSpan], q[kSpan];
+            float h = 0.0f;
 #pragma unroll
             for (int s = 0; s < kSpan; ++s) {
-                const int i = base + s;
+                const int i = j * kBlock + lane * kSpan + s;
                 if (i >= len && i < m) tail_out[static_cast<long long>(c) * w1 + (i - len)] = v[u][s];
-                p[s] = fabsf(v[u][s]);
-                q[s] = p[s];
+                h = fmaxf(h, fabsf(v[u][s]));
             }
 #pragma unroll
-            for (int s = 1; s < kSpan; ++s) {
-                p[s] = fmaxf(p[s], p[s - 1]);
-                q[kSpan - 1 - s] = fmaxf(q[kSpan - 1 - s], q[kSpan - s]);
-            }
-            float hp = p[kSpan - 1];  // max over lanes 0..lane
-            float hq = q[0];          // max over lanes lane..31
-#pragma unroll
-            for (int s = 1; s < 32; s *= 2) {
-                const float pu = __shfl_up_sync(0xffffffffu, hp, s);
-                const float qd = __shfl_down_sync(0xffffffffu, hq, s);
-                if (lane >= s) hp = fmaxf(hp, pu);
-                if (lane + s < 32) hq = fmaxf(hq, qd);
-            }
-            // |y| >= 0, so 0 is the max of no lanes
-            float before = __shfl_up_sync(0xffffffffu, hp, 1);
-            float after = __shfl_down_sync(0xffffffffu, hq, 1);
-            if (lane == 0) before = 0.0f;
-            if (lane == 31) after = 0.0f;
-            store4(pre + base, make_float4(fmaxf(p[0], before), fmaxf(p[1], before),
-                                           fmaxf(p[2], before), fmaxf(p[3], before)));
-            store4(d + base, make_float4(fmaxf(q[0], after), fmaxf(q[1], after),
-                                         fmaxf(q[2], after), fmaxf(q[3], after)));
-            if (lane == 31) table[j] = hp;
+            for (int s = 16; s > 0; s /= 2) h = fmaxf(h, __shfl_xor_sync(0xffffffffu, h, s));
+            if (lane == 0) table[j] = h;
         }
     }
     __syncthreads();
@@ -283,7 +292,9 @@ agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
         for (int k = t0 / kChunk; k < chunks && t0 < len; ++k) {
             while (load_flag(&ready) <= k) {
             }
-            g = chain(d, max(t0, k * kChunk), min((k + 1) * kChunk, len), g, attack, release);
+            const int base = k * kChunk;
+            g = chain(ring + (k % kRing) * kChunk, max(t0, base) - base,
+                      min(base + kChunk, len) - base, g, attack, release);
             publish_flag(&done, k + 1);
         }
         gain_out[c] = g;
@@ -291,11 +302,25 @@ agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
         return;
     }
 
-    // workers: desired chunk by chunk, then int16 behind the chain
+    // workers: desired kRing-1 chunks ahead of the chain, the output
+    // behind it
     const int wt = threadIdx.x - 32;
-    for (int k = t0 / kChunk; k < chunks && t0 < len; ++k) {
-        const int e = min((k + 1) * kChunk, len);
-        for (int t = max(t0, k * kChunk) + wt; t < e; t += kWorkers) {
+    const int first = t0 < len ? t0 / kChunk : chunks;  // the chain's first chunk
+    auto fill = [&](int k) {
+        const int base = k * kChunk;
+        const int s = max(t0, base);
+        const int e = min(base + kChunk, len);
+        const int q0 = base / kBlock;
+        const int p0 = (s + w1) / kBlock;
+        const int nq = (e - 1) / kBlock - q0 + 1;
+        const int np = (e - 1 + w1) / kBlock - p0 + 1;
+        for (int b = warp - 1; b < nq + np; b += kWarps - 1) {
+            if (b < nq) block_scan<true>(tc, xc, w1, m, q0 + b, lane, qs + b * kBlock);
+            else block_scan<false>(tc, xc, w1, m, p0 + b - nq, lane, ps + (b - nq) * kBlock);
+        }
+        workers_sync();
+        float* d = ring + (k % kRing) * kChunk;  // sample t at d[t - base]
+        for (int t = s + wt; t < e; t += kWorkers) {
             const int last = t + w1;
             const int b0 = t / kBlock;
             const int b1 = last / kBlock;
@@ -304,7 +329,7 @@ agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
                 pk = 0.0f;
                 for (int i = t; i <= last; ++i) pk = fmaxf(pk, fabsf(sample(tc, xc, w1, i)));
             } else {
-                pk = fmaxf(d[t], pre[last]);
+                pk = fmaxf(qs[t - base], ps[last - p0 * kBlock]);
                 const int n = b1 - b0 - 1;
                 if (n > 0) {
                     const int lv = 31 - __clz(n);
@@ -312,20 +337,24 @@ agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
                     pk = fmaxf(pk, fmaxf(row[b0 + 1], row[b1 - (1 << lv)]));
                 }
             }
-            d[t] = __fdiv_rn(level, __fadd_rn(pk, 1e-10f));
+            d[t - base] = __fdiv_rn(level, __fadd_rn(pk, 1e-10f));
         }
         workers_sync();
         if (wt == 0) publish_flag(&ready, k + 1);
-    }
+    };
+    int next = first;  // the next chunk to fill
+    for (; next < chunks && next < first + kRing - 1; ++next) fill(next);
     for (int k = 0; k < chunks; ++k) {
-        const int e = min((k + 1) * kChunk, len);
-        if (e > t0) {
+        const int base = k * kChunk;
+        const int e = min(base + kChunk, len);
+        if (k >= first) {
             if (wt == 0)
                 while (load_flag(&done) <= k) __nanosleep(100);
             workers_sync();
         }
-        for (int t = k * kChunk + wt; t < e; t += kWorkers) {
-            const float o = t >= t0 ? __fmul_rn(sample(tc, xc, w1, t), d[t]) : 0.0f;
+        const float* g = ring + (k % kRing) * kChunk;
+        for (int t = base + wt; t < e; t += kWorkers) {
+            const float o = t >= t0 ? __fmul_rn(sample(tc, xc, w1, t), g[t - base]) : 0.0f;
             if (kFloat) {
                 out_f[static_cast<long long>(c) * len + t] = o;
                 continue;
@@ -336,6 +365,9 @@ agc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
             const int s = t - hb * half;
             out[(static_cast<long long>(hb) * channels + c) * half + s] = static_cast<int16_t>(v);
         }
+        // chunk k's slot is read; the slot of chunk k-1 (all workers are
+        // past its output) takes chunk k + kRing - 1
+        if (k >= first && next < chunks) fill(next++);
     }
 }
 
@@ -368,9 +400,9 @@ cudaError_t opt_in_shared(int device) {
     int most = 0;
     cudaFuncAttributes attr;
     cudaError_t err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, agc_kernel<false, kFloat>);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, agc_kernel<kFloat>);
     if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(agc_kernel<false, kFloat>,
+        err = cudaFuncSetAttribute(agc_kernel<kFloat>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    most - static_cast<int>(attr.sharedSizeBytes));
     if (err != cudaSuccess) {
@@ -381,27 +413,25 @@ cudaError_t opt_in_shared(int device) {
     return cudaSuccess;
 }
 
+// A table too large for shared memory (W-1+L past 736,768 samples at
+// W = 38,400) is refused by the launch itself: it returns the error.
+// ops/cuda/agc.py's max_stream mirrors this size, for the config to
+// refuse such a step when it loads.
 template <bool kFloat>
 int launch(const float* x, const float* tail, const float* gain0, const int* seen0,
            int channels, int len, int window, float attack, float release, float level,
            int half, int16_t* out, float* out_f, float* tail_out, float* gain_out,
-           int* seen_out, float* scratch, int device, void* stream) {
+           int* seen_out, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (channels == 0) return 0;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (scratch != nullptr) {
-        agc_kernel<true, kFloat><<<channels, kThreads, 0, st>>>(
-            x, tail, gain0, seen0, channels, len, window, attack, release, level,
-            half, out, out_f, tail_out, gain_out, seen_out, scratch);
-    } else {
-        err = opt_in_shared<kFloat>(device);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        const size_t smem = sizeof(float) * static_cast<size_t>(channel_floats(window, len));
-        agc_kernel<false, kFloat><<<channels, kThreads, smem, st>>>(
-            x, tail, gain0, seen0, channels, len, window, attack, release, level,
-            half, out, out_f, tail_out, gain_out, seen_out, scratch);
-    }
+    err = opt_in_shared<kFloat>(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = sizeof(float) * (static_cast<size_t>(table_floats(window, len)) +
+                                         kRingFloats + kStageFloats);
+    agc_kernel<kFloat><<<channels, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, tail, gain0, seen0, channels, len, window, attack, release, level, half, out,
+        out_f, tail_out, gain_out, seen_out);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -413,16 +443,15 @@ extern "C" const char* kernel_error_string(int code) {
 
 // x: [channels, len] float32; tail: [channels, window-1]; gain0: [C]
 // float32; seen0: [C] int32; out: [len/half, channels, half] int16;
-// tail_out/gain_out/seen_out like the inputs; scratch: null (shared
-// memory) or channel_floats(window, len) * channels floats.
+// tail_out/gain_out/seen_out like the inputs.
 extern "C" int agc_launch(const float* x, const float* tail, const float* gain0,
                           const int* seen0, int channels, int len, int window,
                           float attack, float release, float level, int half,
                           int16_t* out, float* tail_out, float* gain_out,
-                          int* seen_out, float* scratch, int device, void* stream) {
+                          int* seen_out, int device, void* stream) {
     return launch<false>(x, tail, gain0, seen0, channels, len, window, attack, release,
-                         level, half, out, nullptr, tail_out, gain_out, seen_out, scratch,
-                         device, stream);
+                         level, half, out, nullptr, tail_out, gain_out, seen_out, device,
+                         stream);
 }
 
 // agc_launch with a float32 output: out: [channels, len].
@@ -430,10 +459,10 @@ extern "C" int agc_float_launch(const float* x, const float* tail, const float* 
                                 const int* seen0, int channels, int len, int window,
                                 float attack, float release, float level, float* out,
                                 float* tail_out, float* gain_out, int* seen_out,
-                                float* scratch, int device, void* stream) {
+                                int device, void* stream) {
     return launch<true>(x, tail, gain0, seen0, channels, len, window, attack, release,
-                        level, len, nullptr, out, tail_out, gain_out, seen_out, scratch,
-                        device, stream);
+                        level, len, nullptr, out, tail_out, gain_out, seen_out, device,
+                        stream);
 }
 
 // The chain floor of agc_launch's shapes: gain_out only.

@@ -21,32 +21,58 @@
 // de-emphasis and decimation read), I/Q likewise (the rows the RDS
 // lowpass reads).
 //
-// Bound: the dependent chain, one accurate sinf and six rounded float32
+// Bound: the dependent chain, one sine and six rounded float32
 // operations and the wrap per sample; its bytes (the pilot in, L/R and
 // I/Q out) are microseconds.  pilot_chain_probe runs the same loop over
 // a pilot held in registers (no loads, no stores), and its time is the
-// floor this kernel is measured against.
+// floor this kernel is measured against; with the earlier design's loop
+// body (kEarlier) it gives the floor before this design.
 //
-// Design: K-PLL's (csrc/pll.cu).  pilot_chain_kernel, one block per
-// channel: 128 threads copy the channel's pilot into shared memory
-// (kPiece samples a launch; longer rows run as several launches that
-// carry phase and freq), then all but thread 0 exit, so that the chain
-// has no lane to reconverge with, and thread 0 runs it, reading the
-// pilot four samples at a time and storing each sample's ph.
-// pilot_mix_kernel, one thread per sample, then forms the outputs from
-// ph.  The wrap is K-PLL's: one subtract or add of 2*pi where that
-// equals fmodf plus the sign fix bit for bit, fmodf elsewhere.
+// Design: one chain thread per channel, alone in its warp (see
+// csrc/pll.cu), on a chain made as short as the results allow:
+// - The sine is wrapped_sin (csrc/wrapped_sin.cuh): libdevice sinf's
+//   fast path for [0, 2*pi], bit for bit, without the Payne-Hanek branch
+//   and its stack frame.  The wrap guarantees that range: each step's
+//   sine is taken of the wrapped phase at the end of the step, and only
+//   phase0, which the caller may give outside it, goes through sinf,
+//   once, before the loop.
+// - The wrap is K-PLL's: with x = (ph + f_nom) + freq in (-2pi, 4pi),
+//   x >= 2pi ? x - 2pi : (x < 0 ? x + 2pi : x) equals fmodf plus the sign
+//   fix bit for bit; the selects run unconditionally and a branch that
+//   resolves beside them sends x outside that range to fmodf, out of line
+//   (its result lies in [0, 2pi] too, or is a NaN, which wrapped_sin
+//   keeps).
+// - pilot_chain_kernel, one launch for the whole row: a block of one
+//   warp per channel whose lane 0 runs the chain and the others exit.  It
+//   reads the pilot from global memory (L2: the FIR that made it ran just
+//   before) through a ring of kAhead groups of four samples in registers,
+//   each group loaded seven groups (~2,400 cycles) before its use, and
+//   stores each sample's ph.  Nothing else shares the block: helper warps
+//   that staged the pilot in shared memory behind flags made the compiler
+//   bracket each step's rare branch with convergence barriers (BSSY/
+//   BSYNC), and the chain ran slower (tools/torch_kernel_breakdown.py
+//   reports the barriers of each function, and the kernel's time with
+//   other ring depths: shallower rings wait on the loads, deeper ones
+//   outgrow the instruction cache).
+// - pilot_mix_kernel, one thread per sample, then forms the outputs from
+//   ph.
 // Round-to-nearest intrinsics keep the plain version's operation order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "wrapped_sin.cuh"
 
 namespace {
 
-constexpr int kLoadThreads = 128;  // threads that stage the pilot
-constexpr int kPiece = 32768;      // samples per chain launch (128 KB of pilot)
+constexpr int kAhead = 8;  // groups of four pilot samples the chain holds in registers
 constexpr int kMixThreads = 256;
-constexpr int kMaxDevices = 64;
+
+// The loop bodies: the kernel's, and the earlier design's (libdevice
+// sinf of the phase at the step's start, the wrap as a branch), which
+// only the probe runs, for the floor the kernel's body is compared with.
+enum Body { kWrapped = 0, kEarlier = 1 };
 
 __device__ __noinline__ float wrap_fmod(float x, float two_pi) {
     const float r = fmodf(x, two_pi);
@@ -60,54 +86,98 @@ __device__ __forceinline__ float wrap_phase(float x, float two_pi, float four_pi
     return wrap_fmod(x, two_pi);
 }
 
+// Four samples of a row from t on (t + 4 <= len).  Scalar loads and
+// stores: any row length (16-byte ones were no faster on aligned rows).
+__device__ __forceinline__ float4 load_group(const float* __restrict__ p, int t) {
+    return make_float4(__ldg(p + t), __ldg(p + t + 1), __ldg(p + t + 2), __ldg(p + t + 3));
+}
+
+__device__ __forceinline__ void store_group(float* __restrict__ p, int t, float4 v) {
+    p[t] = v.x;
+    p[t + 1] = v.y;
+    p[t + 2] = v.z;
+    p[t + 3] = v.w;
+}
+
 struct Loop {
     float alpha, beta, f_nom, two_pi, four_pi;
 
-    // One sample of pilot y: advance phase and freq, return ph.
-    __device__ __forceinline__ float step(float y, float& phase, float& freq) const {
-        const float e = __fmul_rn(__fmul_rn(-2.0f, y), sinf(phase));
+    // One sample of pilot y: advance phase and freq, return ph; s is
+    // sin(phase), carried to the next step (kEarlier takes the sine of
+    // phase itself and leaves s alone).
+    template <int kBody>
+    __device__ __forceinline__ float step(float y, float& phase, float& freq,
+                                          float& s) const {
+        const float e = __fmul_rn(__fmul_rn(-2.0f, y), kBody == kEarlier ? sinf(phase) : s);
         freq = __fadd_rn(freq, __fmul_rn(alpha, e));
         const float ph = __fadd_rn(phase, __fmul_rn(beta, e));
-        phase = wrap_phase(__fadd_rn(__fadd_rn(ph, f_nom), freq), two_pi, four_pi);
+        const float x = __fadd_rn(__fadd_rn(ph, f_nom), freq);
+        if (kBody == kEarlier) {
+            phase = wrap_phase(x, two_pi, four_pi);
+            return ph;
+        }
+        const float hi = __fsub_rn(x, two_pi);
+        const float lo = __fadd_rn(x, two_pi);
+        phase = x >= two_pi ? hi : (x < 0.0f ? lo : x);
+        if (!(x > -two_pi && x < four_pi))  // rare: fmodf, out of line
+            phase = wrap_fmod(x, two_pi);
+        s = wrapped_sin(phase);
         return ph;
     }
 
-    __device__ __forceinline__ float4 step4(float4 y, float& phase, float& freq) const {
+    template <int kBody>
+    __device__ __forceinline__ float4 step4(float4 y, float& phase, float& freq,
+                                            float& s) const {
         float4 ph;
-        ph.x = step(y.x, phase, freq);
-        ph.y = step(y.y, phase, freq);
-        ph.z = step(y.z, phase, freq);
-        ph.w = step(y.w, phase, freq);
+        ph.x = step<kBody>(y.x, phase, freq, s);
+        ph.y = step<kBody>(y.y, phase, freq, s);
+        ph.z = step<kBody>(y.z, phase, freq, s);
+        ph.w = step<kBody>(y.w, phase, freq, s);
         return ph;
     }
 };
 
-__global__ void __launch_bounds__(kLoadThreads)
-pilot_chain_kernel(const float* __restrict__ pilot, const float* phase0,
-                   const float* freq0, float* __restrict__ ph, float* phase_out,
-                   float* freq_out, int len, int start, int n, Loop loop) {
-    extern __shared__ __align__(16) float yp[];  // samples start .. start+n
-    const int c = blockIdx.x;
-    const long long row = static_cast<long long>(c) * len + start;
-    const float* pc = pilot + row;
-    for (int i = threadIdx.x; i < n; i += kLoadThreads) yp[i] = pc[i];
-    __syncthreads();
+// One thread per channel, alone in its block's warp.
+__global__ void __launch_bounds__(32)
+pilot_chain_kernel(const float* __restrict__ pilot, const float* __restrict__ phase0,
+                   const float* __restrict__ freq0, float* __restrict__ ph,
+                   float* __restrict__ phase_out, float* __restrict__ freq_out, int len,
+                   Loop loop) {
     if (threadIdx.x != 0) return;
-
-    // the chain, alone
+    const int c = blockIdx.x;
+    const long long row = static_cast<long long>(c) * len;
+    const float* pc = pilot + row;
     float* po = ph + row;
     float phase = phase0[c];
     float freq = freq0[c];
-    const float4* y4 = reinterpret_cast<const float4*>(yp);
+    float s = sinf(phase);  // phase0 may lie anywhere
     int t = 0;
-    for (; t + 4 <= n; t += 4) {
-        const float4 v = loop.step4(y4[t / 4], phase, freq);
-        po[t] = v.x;
-        po[t + 1] = v.y;
-        po[t + 2] = v.z;
-        po[t + 3] = v.w;
+    if (len >= 4 * kAhead) {
+        // a ring of kAhead groups in registers (fully unrolled, so its
+        // indices are static), each loaded kAhead - 1 groups before its
+        // use; loads past the row's last whole group read that group
+        // again (not used)
+        const int last = (len & ~3) - 4;
+        float4 q[kAhead];
+#pragma unroll
+        for (int k = 0; k < kAhead - 1; ++k) q[k] = load_group(pc, 4 * k);
+        for (; t + 4 * kAhead <= len; t += 4 * kAhead) {
+#pragma unroll
+            for (int k = 0; k < kAhead; ++k) {
+                q[(k + kAhead - 1) % kAhead] =
+                    load_group(pc, min(t + 4 * (k + kAhead - 1), last));
+                store_group(po, t + 4 * k, loop.step4<kWrapped>(q[k], phase, freq, s));
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < kAhead - 1; ++k) {
+            if (t + 4 <= len) {
+                store_group(po, t, loop.step4<kWrapped>(q[k], phase, freq, s));
+                t += 4;
+            }
+        }
     }
-    for (; t < n; ++t) po[t] = loop.step(yp[t], phase, freq);
+    for (; t < len; ++t) po[t] = loop.step<kWrapped>(pc[t], phase, freq, s);
     phase_out[c] = phase;
     freq_out[c] = freq;
 }
@@ -140,7 +210,8 @@ pilot_mix_kernel(const float* __restrict__ ph, const float* __restrict__ xs,
 
 // The chain alone: the same four-sample groups over four pilot samples
 // held in registers, no loads or stores inside the loop; one thread per
-// channel, alone like pilot_chain_kernel's.
+// channel, alone like pilot_chain_kernel's.  kBody picks the loop body.
+template <int kBody>
 __global__ void __launch_bounds__(32)
 pilot_chain_probe(const float* __restrict__ pilot, const float* __restrict__ phase0,
                   const float* __restrict__ freq0, float* __restrict__ phase_out,
@@ -149,15 +220,39 @@ pilot_chain_probe(const float* __restrict__ pilot, const float* __restrict__ pha
     const int c = blockIdx.x;
     float phase = phase0[c];
     float freq = freq0[c];
+    float s = kBody == kEarlier ? 0.0f : sinf(phase);  // kEarlier has no carried sine
     if (len > 0) {
         const float* pc = pilot + static_cast<long long>(c) * len;
         const float4 y = make_float4(pc[0], pc[1 % len], pc[2 % len], pc[3 % len]);
         int t = 0;
-        for (; t + 4 <= len; t += 4) loop.step4(y, phase, freq);
-        for (; t < len; ++t) loop.step(y.x, phase, freq);
+        for (; t + 4 <= len; t += 4) loop.step4<kBody>(y, phase, freq, s);
+        for (; t < len; ++t) loop.step<kBody>(y.x, phase, freq, s);
     }
     phase_out[c] = phase;
     freq_out[c] = freq;
+}
+
+// Every float32 in [-0, two_pi]: count where wrapped_sin and sinf differ
+// in any bit.  count[0] += values checked, count[1] += mismatches.
+__global__ void __launch_bounds__(256)
+pilot_sin_check(unsigned top, unsigned long long* count) {
+    unsigned long long checked = 0, differ = 0;
+    const unsigned stride = gridDim.x * blockDim.x;
+    for (unsigned long long b = blockIdx.x * blockDim.x + threadIdx.x; b <= top + 1ULL;
+         b += stride) {
+        // bits 0 .. top, then -0
+        const float a = __uint_as_float(b <= top ? static_cast<unsigned>(b) : 0x80000000u);
+        differ += __float_as_uint(wrapped_sin(a)) != __float_as_uint(sinf(a));
+        ++checked;
+    }
+    for (int o = 16; o > 0; o /= 2) {
+        checked += __shfl_xor_sync(0xffffffffu, checked, o);
+        differ += __shfl_xor_sync(0xffffffffu, differ, o);
+    }
+    if ((threadIdx.x & 31) == 0) {
+        atomicAdd(count, checked);
+        atomicAdd(count + 1, differ);
+    }
 }
 
 Loop make_loop(float alpha, float beta, float f_nom, float two_pi) {
@@ -186,25 +281,8 @@ extern "C" int pilot_launch(const float* pilot, const float* phase0, const float
     if (channels == 0) return 0;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Loop loop = make_loop(alpha, beta, f_nom, two_pi);
-    static bool opted_in[kMaxDevices] = {};  // the shared memory of a piece, once per device
-    if (device >= kMaxDevices || !opted_in[device]) {
-        err = cudaFuncSetAttribute(pilot_chain_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(sizeof(float)) * kPiece);
-        if (err != cudaSuccess) {
-            cudaGetLastError();  // not left for the next launcher to report
-            return static_cast<int>(err);
-        }
-        if (device < kMaxDevices) opted_in[device] = true;
-    }
-    int start = 0;
-    do {  // at least once, so that len == 0 still carries phase and freq
-        const int n = len - start < kPiece ? len - start : kPiece;
-        pilot_chain_kernel<<<channels, kLoadThreads, sizeof(float) * n, st>>>(
-            pilot, start == 0 ? phase0 : phase_out, start == 0 ? freq0 : freq_out, ph,
-            phase_out, freq_out, len, start, n, loop);
-        start += n;
-    } while (start < len);
+    pilot_chain_kernel<<<channels, 32, 0, st>>>(pilot, phase0, freq0, ph, phase_out, freq_out,
+                                                len, loop);
     if (len > 0 && (xs != nullptr || xr != nullptr)) {
         const dim3 grid((len + kMixThreads - 1) / kMixThreads, channels);
         pilot_mix_kernel<<<grid, kMixThreads, 0, st>>>(ph, xs, fm, lr, xr, iq, len);
@@ -212,17 +290,39 @@ extern "C" int pilot_launch(const float* pilot, const float* phase0, const float
     return static_cast<int>(cudaGetLastError());
 }
 
-// The chain floor of pilot_launch's shapes: phase_out (and freq_out) only.
+// The chain floor of pilot_launch's shapes: phase_out (and freq_out)
+// only.  body: 0 the kernel's loop, 1 the earlier design's.
 extern "C" int pilot_chain_probe_launch(const float* pilot, const float* phase0,
                                         const float* freq0, float* phase_out,
                                         float* freq_out, int channels, int len,
                                         float alpha, float beta, float f_nom,
-                                        float two_pi, int device, void* stream) {
+                                        float two_pi, int body, int device,
+                                        void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (channels == 0) return 0;
-    pilot_chain_probe<<<channels, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        pilot, phase0, freq0, phase_out, freq_out, len,
-        make_loop(alpha, beta, f_nom, two_pi));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const Loop loop = make_loop(alpha, beta, f_nom, two_pi);
+    if (body == kWrapped)
+        pilot_chain_probe<kWrapped><<<channels, 32, 0, st>>>(pilot, phase0, freq0, phase_out,
+                                                             freq_out, len, loop);
+    else if (body == kEarlier)
+        pilot_chain_probe<kEarlier><<<channels, 32, 0, st>>>(pilot, phase0, freq0, phase_out,
+                                                             freq_out, len, loop);
+    else
+        return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// wrapped_sin against sinf on every float32 in [-0, two_pi]: count[0]
+// (zeroed by the caller) receives the values checked, count[1] the
+// mismatches.
+extern "C" int pilot_sin_check_launch(unsigned long long* count, float two_pi, int device,
+                                      void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    unsigned top;
+    memcpy(&top, &two_pi, sizeof(top));
+    pilot_sin_check<<<132 * 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(top, count);
     return static_cast<int>(cudaGetLastError());
 }

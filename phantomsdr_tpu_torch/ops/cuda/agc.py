@@ -3,13 +3,15 @@
 Replaces the gain ``lax.scan`` and the sliding window max of
 ``agc_process`` (phantomsdr_tpu/ops/agc.py) and ``float_to_int16``
 (phantomsdr_tpu/ops/channelizer.py).  One warp-specialised block of 512
-threads per channel: all threads load the carried tail plus the step's
-stream and build the exact window max's parts (per-128-sample prefix and
-suffix maxes and a sparse table of block maxes) in shared memory; then
-one thread runs the gain recursion (with the ``seen`` clamp) alone in
-its warp, while the other 15 warps compute its input (``desired``) a
-chunk ahead of it and write int16 straight into the [B, C, half] audio
-slice of the step's packed output buffer a chunk behind it.
+threads per channel, everything in shared memory at any window: all
+threads read the carried tail plus the step's stream once for the max
+of |y| per 128-sample block and a sparse table over those; then one
+thread runs the gain recursion (with the ``seen`` clamp) alone in its
+warp, while the other 15 warps fill a ring of 1024-sample chunks with
+its input (``desired``: the exact window max from each chunk's suffix
+and prefix block maxes and the table) up to three chunks ahead of it,
+and write int16 straight into the [B, C, half] audio slice of the
+step's packed output buffer a chunk behind it.
 
 ``agc_float`` launches the same kernel compiled with a float32 output:
 its workers store the gained stream itself into a [C, L] buffer (0
@@ -42,26 +44,26 @@ from .build import (
     F, I, P, CudaKernel, check_host_or_cuda, require_cuda, stream_and_device,
 )
 
-KERNEL = CudaKernel("agc", [P, P, P, P, I, I, I, F, F, F, I, P, P, P, P, P,
-                            I, P],
+KERNEL = CudaKernel("agc", [P, P, P, P, I, I, I, F, F, F, I, P, P, P, P, I,
+                            P],
                     probe_argtypes=[P, P, P, I, I, F, F, I, P])
 FLOAT_KERNEL = CudaKernel("agc_float", [P, P, P, P, I, I, I, F, F, F, P, P,
-                                        P, P, P, I, P], source="agc")
-# shared memory one block may opt in to on sm_90 (bytes) less the
-# kernel's two flag words; above it the kernel's window-max buffers go
-# to a device scratch buffer
-SMEM_LIMIT = 232448 - 8
+                                        P, P, I, P], source="agc")
+
+# The kernel's shared memory (csrc/agc.cu): the table of block maxes
+# (levels x 128-sample blocks of W-1+L floats, padded to four) beside the
+# ring and one chunk's stage (6,296 floats) and two int flags, within the
+# 227 KB a block may take on Hopper.
+_SMEM_FLOATS = (227 * 1024 - 8) // 4 - (4 * 1024 + 4 * 6 + 1024 + 9 * 128)
+_BLOCK = 128
 
 
-def _channel_floats(window: int, length: int) -> int:
-    """Floats per channel of the kernel's window-max buffers: P and Q of
-    whole 128-sample blocks of W-1+L samples plus 24 floats each, and a
-    sparse table of one row of block maxes per level, padded to a
-    multiple of four (csrc/agc.cu channel_floats)."""
-    blocks = (window - 1 + length + 127) // 128
-    levels = max((window + 126) // 128 - 1, 1).bit_length()
-    n = 2 * (blocks * 128 + 24) + levels * blocks
-    return (n + 3) & ~3
+def max_stream(window: int) -> int:
+    """The longest stream (samples per channel and call) the kernel
+    takes at ``window``; a longer one fails at launch.  The config
+    refuses a step past it when it loads."""
+    levels = max((window + _BLOCK - 2) // _BLOCK - 1, 1).bit_length()
+    return (_SMEM_FLOATS & ~3) // levels * _BLOCK - (window - 1)
 
 
 @functools.lru_cache(maxsize=16)
@@ -104,15 +106,11 @@ def _launch(kernel: CudaKernel, state: AGCState, x: torch.Tensor,
     tail = torch.empty_like(state.tail)
     gain = torch.empty_like(state.gain)
     seen = torch.empty_like(state.seen)
-    per_channel = _channel_floats(w, n)
-    scratch = (x.new_empty(per_channel * c)
-               if 4 * per_channel > SMEM_LIMIT else None)
     stream, dev = stream_and_device(x)
     kernel.launch(
         x.data_ptr(), state.tail.data_ptr(), state.gain.data_ptr(),
         state.seen.data_ptr(), c, n, w, *_coeffs(params), *out,
-        tail.data_ptr(), gain.data_ptr(), seen.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, dev, stream)
+        tail.data_ptr(), gain.data_ptr(), seen.data_ptr(), dev, stream)
     return AGCState(tail=tail, gain=gain, seen=seen)
 
 

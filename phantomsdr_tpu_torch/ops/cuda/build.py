@@ -73,8 +73,10 @@ class CudaKernel:
         self._lib = None
 
     def lib_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        # the source and the headers it may include from csrc/
+        text = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}-{h}.so"
 
     def start_build(self):
@@ -112,14 +114,16 @@ class CudaKernel:
 
     def launch(self, *args) -> None:
         """Call ``<name>_launch(*args)`` and raise on a CUDA error."""
-        self._call(f"{self.name}_launch", args)
+        self.call(f"{self.name}_launch", *args)
         self.launches += 1
 
     def probe(self, *args) -> None:
         """Call ``<name>_chain_probe_launch(*args)``; not counted."""
-        self._call(f"{self.name}_chain_probe_launch", args)
+        self.call(f"{self.name}_chain_probe_launch", *args)
 
-    def _call(self, fn: str, args) -> None:
+    def call(self, fn: str, *args) -> None:
+        """Call the library's ``fn(*args)`` (its argtypes bound) and raise
+        on a CUDA error; not counted."""
         lib = self.lib()
         rc = getattr(lib, fn)(*args)
         if rc != 0:

@@ -9,11 +9,15 @@ downmix of ``rds_from_pilot`` (phantomsdr_tpu/ops/rds.py).
 Bound on the card: the per-channel dependent chain of one step's
 samples (sin, the loop update and the wrap, sample after sample), not
 its bytes.  ``chain_probe`` launches that loop alone over a pilot held in
-registers; its time is the floor the kernel is measured against.  The
-design is K-PLL's (ops/cuda/pll.py): one block per channel stages the
-pilot in shared memory and leaves one thread to run the chain and store
-each sample's phase; a fully parallel kernel then forms the stereo L/R
-and the RDS I/Q rows from it.
+registers; its time is the floor the kernel is measured against (with
+``BODY_EARLIER``, the earlier design's loop: libdevice ``sinf`` at each
+step's start and the wrap as a branch).  One thread per channel runs
+the chain alone in its block, reading the pilot through a ring of
+registers loaded ahead of it, and stores each sample's phase; its sine is libdevice ``sinf``'s fast path
+for the wrapped phase's range [0, 2*pi] (csrc/wrapped_sin.cuh), equal to
+``sinf`` there bit for bit, which ``sin_check`` verifies over every
+float32 of the range.  A fully parallel kernel then forms the stereo L/R
+and the RDS I/Q rows from the phase.
 
 ``pilot_mix_plain`` is the same function in plain PyTorch (a Python loop
 over samples, vectorized over channels); the wrapper takes it only for
@@ -32,7 +36,9 @@ from .pll import PLL_ALPHA, PLL_BETA, TWO_PI, _GAINS
 
 KERNEL = CudaKernel("pilot", [P, P, P, P, P, P, P, P, P, P, P, I, I, F, F, F,
                               F, I, P],
-                    probe_argtypes=[P, P, P, P, P, I, I, F, F, F, F, I, P])
+                    probe_argtypes=[P, P, P, P, P, I, I, F, F, F, F, I, I, P])
+# chain_probe's loop bodies (csrc/pilot.cu enum Body)
+BODY_KERNEL, BODY_EARLIER = 0, 1
 
 
 def _loop_args(f_nom: float) -> tuple[float, float, float, float]:
@@ -139,11 +145,14 @@ def pilot_mix(phase0: torch.Tensor, freq0: torch.Tensor, f_nom: float,
 
 
 def chain_probe(y: torch.Tensor, phase0: torch.Tensor, freq0: torch.Tensor,
-                f_nom: float) -> tuple[torch.Tensor, torch.Tensor]:
+                f_nom: float, body: int = BODY_KERNEL
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's chain alone, for timing: the same loop over T
     samples per channel on four pilot samples held in registers, no
-    loads or stores inside it.  Returns its (phase, freq); not counted
-    as a launch of the kernel.  CUDA tensors only."""
+    loads or stores inside it.  ``body`` picks the loop: the kernel's,
+    or the earlier design's (libdevice ``sinf`` at each step's start, the
+    wrap as a branch).  Returns its (phase, freq); not counted as a launch of
+    the kernel.  CUDA tensors only."""
     require_cuda(y, "y", torch.float32, 2)
     require_cuda(phase0, "phase0", torch.float32, 1)
     require_cuda(freq0, "freq0", torch.float32, 1)
@@ -157,5 +166,20 @@ def chain_probe(y: torch.Tensor, phase0: torch.Tensor, freq0: torch.Tensor,
     stream, dev = stream_and_device(y)
     KERNEL.probe(y.data_ptr(), phase0.data_ptr(), freq0.data_ptr(),
                  phase.data_ptr(), freq.data_ptr(), c, n, *_loop_args(f_nom),
-                 dev, stream)
+                 body, dev, stream)
     return phase, freq
+
+
+def sin_check(device: int | str = "cuda") -> tuple[int, int]:
+    """The kernel's sine against libdevice ``sinf`` on the card over
+    every float32 in [-0, 2*pi] (2*pi as the kernel's float32):
+    (values checked, values whose bits differ).  CUDA only."""
+    count = torch.zeros(2, dtype=torch.int64, device=device)
+    require_cuda(count, "count", torch.int64, 1)
+    stream, dev = stream_and_device(count)
+    fn = KERNEL.lib().pilot_sin_check_launch
+    fn.argtypes, fn.restype = [P, F, I, P], I
+    KERNEL.call("pilot_sin_check_launch", count.data_ptr(), _GAINS[2], dev,
+                stream)
+    checked, differ = count.tolist()
+    return checked, differ

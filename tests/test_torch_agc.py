@@ -174,3 +174,80 @@ def test_agc_window_max_decomposition_is_exact(w):
         peaks[t] = pk
     want = agc.sliding_max_abs(torch.from_numpy(y), w, length).numpy()
     np.testing.assert_array_equal(peaks, want)
+
+
+def kernel_chunk_window_max(y: torch.Tensor, w: int, length: int,
+                            t0: int) -> torch.Tensor:
+    """csrc/agc.cu's window max as its worker warps form it, peak[t] for
+    t in [t0, L): the max of |y| per 128-sample block and a sparse table
+    over those; then, per ring chunk of 1024 outputs, the suffix maxes Q
+    of the chunk's blocks (at most 8) and the prefix maxes P of the
+    blocks its window ends fall in (at most 9), and peak[t] = max(Q[t],
+    P[t+W-1], two table entries over the whole blocks between); a window
+    inside one block is read directly.  The same index arithmetic, with
+    the kernel's buffer sizes asserted."""
+    blk, chunk = 128, 1024
+    a = y.abs()
+    m = w - 1 + length
+    nb = -(-m // blk)
+    blocks = torch.zeros(nb * blk, dtype=a.dtype)
+    blocks[:m] = a
+    blocks = blocks.view(nb, blk)
+    levels = max((w + blk - 2) // blk - 1, 1).bit_length()
+    table = [blocks.max(dim=1).values]
+    for k in range(1, levels):
+        h = 1 << (k - 1)
+        table.append(torch.maximum(table[-1][:-h], table[-1][h:]))
+    peaks = torch.empty(length - t0, dtype=a.dtype)
+    for k in range(t0 // chunk, -(-length // chunk)):
+        base = k * chunk
+        s, e = max(t0, base), min(base + chunk, length)
+        q0 = base // blk
+        p0 = (s + w - 1) // blk
+        nq = (e - 1) // blk - q0 + 1
+        np_ = (e - 1 + w - 1) // blk - p0 + 1
+        assert nq <= chunk // blk and np_ <= chunk // blk + 1
+        qs = blocks[q0:q0 + nq].flip(1).cummax(1).values.flip(1).reshape(-1)
+        ps = blocks[p0:p0 + np_].cummax(1).values.reshape(-1)
+        t = torch.arange(s, e)
+        last = t + w - 1
+        b0, b1 = t // blk, last // blk
+        pk = torch.maximum(qs[t - base], ps[last - p0 * blk])
+        n = b1 - b0 - 1
+        for lv in range(levels):
+            sel = (n > 0) & (torch.floor(torch.log2(n.clamp(min=1).double()))
+                             .long() == lv)
+            if sel.any():
+                row = table[lv]
+                pk[sel] = torch.maximum(pk[sel], torch.maximum(
+                    row[b0[sel] + 1], row[b1[sel] - (1 << lv)]))
+        inside = b0 == b1
+        assert not inside.any() or w <= blk
+        for i in torch.nonzero(inside).flatten().tolist():
+            pk[i] = a[t[i]:last[i] + 1].max()
+        peaks[s - t0:e - t0] = pk
+    return peaks
+
+
+# W against the block (128) and the chunk (1024): below, at, W - 1 a
+# multiple of either, one past; L below, at and past a chunk, and the
+# production shapes (12 kHz and 192 kHz audio)
+@pytest.mark.parametrize("w,length", [
+    (20, 1500), (128, 700), (129, 1029), (400, 500), (1000, 3000),
+    (1024, 3000), (1025, 2100), (2049, 2100), (2400, 6480), (2400, 1024),
+    (38400, 700), (38400, 5000),
+])
+def test_agc_chunked_window_max_matches_jax(w, length):
+    """The kernel's chunk decomposition of the window max equals JAX's
+    _sliding_max_abs exactly, from where the warm-up of seen = 0, W - 2
+    and W ends (t0 = W - 1, 1 and 0; only t >= t0 is read)."""
+    rng = np.random.default_rng(w + length)
+    y = rng.standard_normal(w - 1 + length).astype(np.float32)
+    y[::53] *= 7.0
+    want = np.asarray(jagc._sliding_max_abs(jnp.asarray(y[None]), w,
+                                            length))[0]
+    for seen in (0, w - 2, w):
+        t0 = min(max(w - 1 - seen, 0), length)
+        got = kernel_chunk_window_max(t(y), w, length, t0).numpy()
+        np.testing.assert_array_equal(got, want[t0:],
+                                      err_msg=f"W={w} L={length} seen={seen}")

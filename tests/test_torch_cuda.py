@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions on the card,
 at shapes the main path does not reach (a pyramid deeper than one
 chunk, rows narrower than a chunk, other rolls, misaligned input and
-output rows, real input, an AGC window too large for shared memory;
-the WBFM kernels at odd lengths and with masked rows; the noise
-processors at other orders, blocks and frame counts).  They need a
+output rows, real input, AGC windows and lengths at the edges of its
+128-sample blocks and 1024-sample chunks; the WBFM kernels at odd
+lengths and with masked rows, K-PILOT's sine over every float32 of the
+wrapped phase's range and its rare wraps; the noise processors at
+other orders, blocks and frame counts).  They need a
 CUDA device and skip elsewhere; run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -138,8 +140,8 @@ EDGES = (0, 3, 511, 1023, 1024, 1025, 1537, None)
     (100, 5, 13, "mixed"), (1000, 3, 37, "mixed"),
 ])
 def test_agc_kernel_matches_plain(dev, sr, b, half, seen):
-    """(192000: the window is 38400 samples, past shared memory, so the
-    kernel runs on its device scratch buffer.)"""
+    """(192000: a window of 38,400 samples, formed chunk by chunk from
+    a table of block maxes in shared memory.)"""
     g = torch.Generator(device=dev).manual_seed(sr)
     params = make_agc_params(sr)
     w = params.window
@@ -231,7 +233,8 @@ def mpx_rows(c, n, dev, seed):
 
 @pytest.mark.parametrize("c,n,mixes", [
     (5, 3001, "both"), (4, 40272, "stereo"), (3, 32768, "rds"),
-    # past one chain launch's 32768 samples, odd; short rows
+    # odd, not a whole number of the chain's 32-sample register ring;
+    # short rows (under one ring)
     (3, 33771, "both"), (7, 5, "both"), (2, 1000, "none"),
 ])
 def test_pilot_kernel_matches_plain(dev, c, n, mixes):
@@ -264,11 +267,14 @@ def test_pilot_kernel_matches_plain(dev, c, n, mixes):
         kc, pc = got[:2], want[:2]
 
 
-@pytest.mark.parametrize("n", [1001, 40272])
-def test_pilot_chain_probe_runs_the_kernels_loop(dev, n):
+@pytest.mark.parametrize("n,body", [(1001, 0), (40272, 0), (1001, 1),
+                                    (40272, 1)])
+def test_pilot_chain_probe_runs_the_kernels_loop(dev, n, body):
     """On a pilot that repeats four samples (L % 4 <= 1, as the probe's
     tail reuses the first), the probe and the kernel end on the same
-    phase and frequency bit for bit."""
+    phase and frequency bit for bit, with both of the probe's loop
+    bodies (the kernel's, the earlier design's libdevice sinf): the two
+    compute the same values."""
     g = torch.Generator(device=dev).manual_seed(n)
     c = 5
     four = torch.randn(c, 4, device=dev, generator=g) * 0.1
@@ -276,9 +282,80 @@ def test_pilot_chain_probe_runs_the_kernels_loop(dev, n):
     p0 = torch.rand(c, device=dev, generator=g) * 6
     f0 = torch.zeros(c, device=dev)
     f_nom = make_stereo_params(192000).f_nom
-    phase, freq = pilot.chain_probe(y, p0, f0, f_nom)
+    phase, freq = pilot.chain_probe(y, p0, f0, f_nom, body)
     k_phase, k_freq, _, _, _ = pilot.pilot_mix(p0, f0, f_nom, y)
     assert torch.equal(phase, k_phase) and torch.equal(freq, k_freq)
+
+
+def test_pilot_sine_equals_sinf_on_every_wrapped_phase(dev):
+    """The kernel's sine (csrc/wrapped_sin.cuh) equals libdevice sinf in
+    every bit on every float32 in [-0, 2*pi], 2*pi as the kernel's
+    float32 (0x40c90fdb): 1,086,918,621 values."""
+    top = int(np.float32(2 * np.pi).view(np.uint32))
+    assert top == 0x40C90FDB
+    checked, differ = pilot.sin_check(dev)
+    assert checked == top + 2
+    assert differ == 0
+
+
+def test_pilot_kernel_phase0_anywhere_and_the_fmod_wrap(dev):
+    """Over two chained calls of 40,000 samples (past the old 32,768-
+    sample piece): phase0 outside [0, 2*pi] (-20, 100) takes sinf once
+    before the loop; a pilot spike of 1e7 drives freq past 4*pi, so every
+    later step wraps through fmodf, on the first sample (phase0 1) and in
+    the middle of a row.  Carries equal to pilot_track_plain, ph within
+    the K-PLL bound."""
+    c, n = 4, 40000
+    x, y, f_nom = mpx_rows(c, 2 * n, dev, 5)
+    y[2, 0] = 1e7
+    y[3, 20000] = -1e7
+    tol = 1e-5 * float(x.abs().max())
+    kc = pc = (torch.tensor([-20.0, 100.0, 1.0, 3.0], device=dev),
+               torch.zeros(c, device=dev))
+    for k in range(2):
+        ys = y[:, k * n:(k + 1) * n].contiguous()
+        got = pilot.pilot_mix(*kc, f_nom, ys)
+        want = pilot.pilot_mix_plain(*pc, f_nom, ys)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert float((got[2] - want[2]).abs().max()) <= tol
+        kc, pc = got[:2], want[:2]
+    # freq past 4*pi: (ph + f_nom) + freq leaves (-2pi, 4pi) at every step
+    assert (kc[1][2:].abs() > 4 * np.pi).all()
+    assert ((kc[0] >= 0) & (kc[0] <= 2 * np.pi)).all()
+
+
+def test_agc_refuses_a_table_past_shared_memory(dev):
+    """A stream so long that K-AGC's table of block maxes passes shared
+    memory (W = 38,400, L = 800,000: 236 KB) raises; nothing falls back
+    to the plain version, and the launch is not counted."""
+    params = make_agc_params(192000)
+    w = params.window
+    x = torch.zeros(1, 800000, device=dev)
+    state = AGCState(tail=torch.zeros(1, w - 1, device=dev),
+                     gain=torch.zeros(1, device=dev),
+                     seen=torch.zeros(1, dtype=torch.int32, device=dev))
+    before = agc.FLOAT_KERNEL.launches
+    with pytest.raises(RuntimeError, match="agc_float_launch failed"):
+        agc.agc_float(state, x, params)
+    assert agc.FLOAT_KERNEL.launches == before
+
+
+def test_agc_takes_the_longest_stream_the_config_allows(dev):
+    """At W = 38,400 the kernel launches on agc.max_stream(W) samples
+    (the cap the config holds hop_batch to) and refuses one more: the
+    cap is the kernel's own."""
+    params = make_agc_params(192000)
+    w = params.window
+    n = agc.max_stream(w)
+    state = AGCState(tail=torch.zeros(1, w - 1, device=dev),
+                     gain=torch.zeros(1, device=dev),
+                     seen=torch.zeros(1, dtype=torch.int32, device=dev))
+    x = torch.randn(1, n + 1, device=dev) * 0.1
+    st, out = agc.agc_float(state, x[:, :n].contiguous(), params)
+    assert out.shape == (1, n) and bool(torch.isfinite(out).all())
+    assert int(st.seen[0]) == w
+    with pytest.raises(RuntimeError, match="agc_float_launch failed"):
+        agc.agc_float(state, x, params)
 
 
 @pytest.mark.parametrize("rows,n", [(256, 40272), (6, 8192), (6, 8193),
@@ -306,12 +383,20 @@ def test_deemph_kernel_matches_plain(dev, rows, n):
         ky, py = got_c, want_c
 
 
+# (sample rate, L): the windows W = sr / 5 of the WBFM (38,400) and nr
+# (2400) paths, W below the 1024-sample chunk (20 inside one 128-sample
+# block, 400), at it (1024), one past (W - 1 a multiple of the chunk:
+# 1025), W - 1 a multiple of the block and of two chunks (129, 2049),
+# L below a chunk (500, 700)
 @pytest.mark.parametrize("sr,n", [(192000, 40272), (192000, 1001),
-                                  (12000, 6480), (12000, 1539)])
+                                  (12000, 6480), (12000, 1539),
+                                  (192000, 700), (100, 1500), (2000, 500),
+                                  (5120, 3000), (5125, 3000), (645, 1029),
+                                  (10245, 2100)])
 def test_agc_float_kernel_matches_plain(dev, sr, n):
     """K-AGC's float mode against agc_process (rtol 1e-6, as
-    tests/test_torch_agc.py), across warm-up states; 192000: the window
-    (38,400) takes the device scratch path."""
+    tests/test_torch_agc.py), across warm-up states (seen 0, W - 2 and W
+    among them)."""
     g = torch.Generator(device=dev).manual_seed(sr + n)
     params = make_agc_params(sr)
     w = params.window

@@ -185,6 +185,24 @@ def test_wbfm_profiles_load(profile):
     assert cfg.audio_channels == 2
 
 
+@pytest.mark.parametrize("hop_batch", [138, 139])
+def test_agc_step_past_shared_memory_is_rejected_at_config_time(hop_batch):
+    """K-AGC keeps its window max in shared memory, so a step too long
+    for it is refused when the config loads: the wideband profile (192
+    kHz audio, W = 38,400, 5,034 samples a hop) loads at hop_batch 138
+    (694,692 samples a step) and is refused at 139 (699,726 > 698,369)."""
+    from phantomsdr_tpu_torch.ops.cuda.agc import max_stream
+
+    assert max_stream(38400) == 698369
+    t = {"input": {**WIDEBAND, "frequency": 100_000_000, "signal": "iq"},
+         "tpu": {"hop_batch": hop_batch}}
+    if hop_batch == 138:
+        assert config_from_dict(t).audio_fft_size == 10068
+    else:
+        with pytest.raises(ValueError, match="hop_batch=139.*at most 698369"):
+            config_from_dict(t)
+
+
 def test_mesh_mode_is_rejected_at_config_time():
     with pytest.raises(ValueError, match="mesh_devices"):
         config_from_dict({"input": {"sps": SPS, "fft_size": FFT},

@@ -1,19 +1,31 @@
 #!/usr/bin/env python3
-"""Where K-AGC's and K-WF's time goes on the card, at chip_smoke.py's
-bench shapes.
+"""Where K-AGC's, K-PILOT's and K-WF's time goes on the card, at
+chip_smoke.py's shapes.
 
     python3 tools/torch_kernel_breakdown.py [--host-only]
+        [--parent CSRC_DIR] [--sass-dir DIR]
 
 Prints one JSON line each:
 
 - ``agc_phases``: cycles (clock64, from the block's start) at which
-  csrc/agc.cu's phases end -- y loaded and split into block maxes, the
-  sparse table built, the chain's first chunk ready -- and the chain's
-  cycles per sample, by warm-up point, beside the chain probe's, at
-  [128, 6480] float32 streams, window 2400, seen mixed over 0, W/2, W-1
-  and W.  They come from an instrumented copy of csrc/agc.cu: this script
+  csrc/agc.cu's phases end -- y read and split into block maxes, the
+  sparse table built, the chain's first chunk ready, the chain done --
+  and the chain's cycles per sample, by warm-up point, beside the chain
+  probe's, at two shapes: ``bench_int16`` ([128, 6480] float32 streams,
+  window 2400, int16 out) and ``wbfm_float`` ([128, 40,272], window
+  38,400, float32 out, the WBFM step's), seen mixed over 0, W/2, W-1 and
+  W.  They come from an instrumented copy of csrc/agc.cu: this script
   adds the stamps to the source text and builds it with nvcc into
-  build/torch_kernels/ (the kernel the package runs stays as it is).
+  build/torch_kernels/ (the kernel the package runs stays as it is); its
+  output must equal the package kernel's.
+- ``pilot_sass``: for csrc/pilot.cu, each kernel's registers and stack
+  frame (``nvcc -Xptxas -v``) and, for each chain probe, the
+  instructions of its loop (four steps) by opcode, from ``cuobjdump
+  -sass``; the whole SASS goes to ``--sass-dir`` (default
+  build/torch_kernels/).
+- ``pilot_depths``: K-PILOT's kernel ms at the WBFM shape with its
+  register ring of pilot samples 2, 4, 8 (as built) and 16 groups deep,
+  from copies of csrc/pilot.cu.
 - ``wf_variants``: K-WF at its bench shape ([36, 2^20] complex64 spectra
   with |X|^2 spread over the int8 range, 6 due rows, 11 levels), device
   us per call (torch.profiler) of the kernel as built and of copies of
@@ -29,6 +41,15 @@ Prints one JSON line each:
   lone call leaves the card waiting), and ``events_only_ms``:
   chip_smoke.py's one-call timing of an empty function, the timing's own
   cost.  ``waterfall_rows`` is K-WF's wrapper at its bench shape.
+
+``--parent CSRC_DIR`` (the ``phantomsdr_tpu_torch/csrc`` of another
+checkout, e.g. unpacked with ``git archive`` into build/archive/) adds
+that checkout's K-AGC and K-PILOT beside the package's: its
+``agc_phases`` and ``pilot_sass``, and a ``compare`` line that holds its
+outputs equal to the package kernels' bit for bit on the same inputs and
+times both in turns (parent, package, package, parent: kernel_ms, the
+device work of one call) with their chain probes.  The parent's C
+interfaces must be the package's.
 
 ``--host-only`` prints only ``host_us``: copied into another checkout's
 tools/, the script then times that checkout's wrappers (their
@@ -111,8 +132,7 @@ extern "C" int read_counts(unsigned long long* host) {
 """
 
 
-def instrumented_source() -> str:
-    src = (ROOT / "phantomsdr_tpu_torch/csrc/agc.cu").read_text()
+def instrumented_source(src: str) -> str:
     for anchor, text, before in STAMPS:
         if src.count(anchor) != 1:
             raise RuntimeError(f"csrc/agc.cu changed: anchor {anchor!r}")
@@ -129,9 +149,12 @@ extern "C" int read_stamps(long long* host, int channels) {
 """
 
 
-def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    """Build each {name: CUDA source} into build/torch_kernels/ at once."""
-    from phantomsdr_tpu_torch.ops.cuda.build import BUILD_DIR, NVCC_FLAGS, nvcc_path
+def build(sources: dict[str, str], include: Path | None = None,
+          verbose: bool = False) -> dict[str, ctypes.CDLL]:
+    """Build each {name: CUDA source} into build/torch_kernels/ at once,
+    with ``include`` (default: the package's csrc/) on the include path;
+    ``verbose`` keeps ptxas's register and stack lines in ``PTXAS[name]``."""
+    from phantomsdr_tpu_torch.ops.cuda.build import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc_path
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -139,13 +162,20 @@ def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
         cu = BUILD_DIR / f"{name}.cu"
         cu.write_text(src)
         procs[name] = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(BUILD_DIR / f"lib{name}.so"),
-             str(cu)])
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(include or CSRC),
+             *(["-Xptxas", "-v"] if verbose else []),
+             "-o", str(BUILD_DIR / f"lib{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on {name}")
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        PTXAS[name] = log
     return {name: ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
             for name in sources}
+
+
+PTXAS: dict[str, str] = {}
 
 
 def host_us(fn, calls: int = 50) -> float:
@@ -162,48 +192,229 @@ def host_us(fn, calls: int = 50) -> float:
     return float(np.median(times[1:])) * 1e6
 
 
-def agc_phases(state, x, params, out, args, gain, dev, stream) -> None:
-    """Print K-AGC's phase stamps from its instrumented copy."""
+def agc_launcher(lib, float_mode: bool):
+    from phantomsdr_tpu_torch.ops.cuda import agc
+
+    kernel = agc.FLOAT_KERNEL if float_mode else agc.KERNEL
+    fn = lib.agc_float_launch if float_mode else lib.agc_launch
+    fn.argtypes = kernel.argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def agc_case(name: str):
+    """(state, x, params, float_mode) of one of agc_phases' shapes."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.agc import AGCState, make_agc_params
+
+    c, n, sr, float_mode = {"bench_int16": (128, 36 * 180, 12000, False),
+                            "wbfm_float": (128, 8 * 5034, 192000, True)}[name]
+    params = make_agc_params(sr)
+    w = params.window
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(c, n, device="cuda", generator=gen) * 0.05
+    x[:, ::97] *= 8.0
+    state = AGCState(
+        tail=torch.randn(c, w - 1, device="cuda", generator=gen) * 0.05,
+        gain=torch.rand(c, device="cuda", generator=gen) * 5.0,
+        seen=torch.tensor([0, w // 2, w - 1, w] * (c // 4),
+                          dtype=torch.int32, device="cuda"))
+    return state, x, params, float_mode
+
+
+def agc_call(fn, state, x, params, float_mode: bool):
+    """A callable that launches K-AGC's ``fn`` (a ctypes launcher) on the
+    case, and its outputs (out, tail, gain, seen)."""
     import torch
 
     from phantomsdr_tpu_torch.ops.cuda import agc
-    from phantomsdr_tpu_torch.ops.cuda.build import I, P
+    from phantomsdr_tpu_torch.ops.cuda.build import stream_and_device
 
     c, n = x.shape
-    lib = build({"agc_stamped": instrumented_source()})["agc_stamped"]
-    lib.agc_launch.argtypes = agc.KERNEL.argtypes
+    w = params.window
+    if float_mode:
+        out = torch.empty_like(x)
+        head = ()
+    else:
+        half = 180
+        out = torch.empty(n // half, c, half, dtype=torch.int16, device="cuda")
+        head = (half,)
+    tail, gain = torch.empty_like(state.tail), torch.empty_like(state.gain)
+    seen = torch.empty_like(state.seen)
+    stream, dev = stream_and_device(x)
+    args = (x.data_ptr(), state.tail.data_ptr(), state.gain.data_ptr(),
+            state.seen.data_ptr(), c, n, w, *agc._coeffs(params), *head,
+            out.data_ptr(), tail.data_ptr(), gain.data_ptr(), seen.data_ptr(),
+            dev, stream)
+
+    def run():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"K-AGC launch failed: {rc}")
+
+    return run, (out, tail, gain, seen)
+
+
+def package_agc(state, x, params, float_mode: bool):
+    """The package kernel's (out, tail, gain, seen) on the case."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import agc
+
+    if float_mode:
+        st, out = agc.agc_float(state, x, params)
+    else:
+        c, n = x.shape
+        out = torch.empty(n // 180, c, 180, dtype=torch.int16, device="cuda")
+        st = agc.agc_int16(state, x, params, out)
+    return (out, st.tail, st.gain, st.seen)
+
+
+def same(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def agc_phases(src: str, include: Path, tag: str) -> dict:
+    """K-AGC's phase stamps at both shapes from an instrumented copy of
+    the source text ``src``; its outputs must equal the package
+    kernel's."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import agc
+    from phantomsdr_tpu_torch.ops.cuda.build import I, P, stream_and_device
+
+    lib = build({f"agc_stamped_{tag}": instrumented_source(src)},
+                include)[f"agc_stamped_{tag}"]
     lib.agc_chain_probe_launch.argtypes = agc.KERNEL.probe_argtypes
     lib.read_stamps.argtypes = [P, I]
-    stamps = np.zeros((c, 8), np.int64)
-    for _ in range(3):
-        assert lib.agc_launch(*args) == 0
-    torch.cuda.synchronize()
-    lib.read_stamps(stamps.ctypes.data, c)
-    want = torch.empty_like(out)
-    agc.agc_int16_plain(state, x, params, want)
-    if not torch.equal(out, want):
-        raise AssertionError("instrumented K-AGC differs from the plain version")
-    for _ in range(3):
-        assert lib.agc_chain_probe_launch(x.data_ptr(), state.gain.data_ptr(),
-                                          gain.data_ptr(), c, n,
-                                          *agc._coeffs(params)[:2], dev,
-                                          stream) == 0
-    torch.cuda.synchronize()
-    probe = np.zeros((c, 8), np.int64)
-    lib.read_stamps(probe.ctypes.data, c)
-    chain = {}
-    for t0 in sorted(set(stamps[:, 5].tolist())):
-        sel = stamps[:, 5] == t0
-        cyc = stamps[sel, 3] - stamps[sel, 2]
-        chain[str(t0)] = float(np.median(cyc)) / max(n - t0, 1)
-    print(json.dumps({"agc_phases": {
-        "cycles_median": {name: float(np.median(stamps[:, k]))
-                          for k, name in enumerate(
-                              ["loaded", "table", "chain_start", "chain_end"])},
-        "cycles_max": {"chain_end": int(stamps[:, 3].max())},
-        "chain_cycles_per_sample_by_t0": chain,
-        "probe_cycles_per_sample": float(np.median(probe[:, 6])) / n}}),
-        flush=True)
+    res = {}
+    for case in ("bench_int16", "wbfm_float"):
+        state, x, params, float_mode = agc_case(case)
+        c, n = x.shape
+        run, got = agc_call(agc_launcher(lib, float_mode), state, x, params,
+                            float_mode)
+        stamps = np.zeros((c, 8), np.int64)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        lib.read_stamps(stamps.ctypes.data, c)
+        if not same(got, package_agc(state, x, params, float_mode)):
+            raise AssertionError(f"instrumented K-AGC ({tag}, {case}) differs "
+                                 f"from the package kernel")
+        gain = torch.empty_like(state.gain)
+        stream, dev = stream_and_device(x)
+        for _ in range(3):
+            assert lib.agc_chain_probe_launch(
+                x.data_ptr(), state.gain.data_ptr(), gain.data_ptr(), c, n,
+                *agc._coeffs(params)[:2], dev, stream) == 0
+        torch.cuda.synchronize()
+        probe = np.zeros((c, 8), np.int64)
+        lib.read_stamps(probe.ctypes.data, c)
+        chain = {}
+        for t0 in sorted(set(stamps[:, 5].tolist())):
+            sel = stamps[:, 5] == t0
+            cyc = stamps[sel, 3] - stamps[sel, 2]
+            chain[str(t0)] = float(np.median(cyc)) / max(n - t0, 1)
+        res[case] = {
+            "shape": [c, n], "window": params.window,
+            "cycles_median": {name: float(np.median(stamps[:, k]))
+                              for k, name in enumerate(
+                                  ["loaded", "table", "chain_start",
+                                   "chain_end"])},
+            "cycles_max": {"chain_end": int(stamps[:, 3].max())},
+            "chain_cycles_per_sample_by_t0": chain,
+            "probe_cycles_per_sample": float(np.median(probe[:, 6])) / n,
+            "equal_to_package_kernel": True}
+    return {"source": tag, **res}
+
+
+PILOT_FUNCTIONS = ("pilot_chain_kernel", "pilot_mix_kernel", "pilot_chain_probe",
+                   "pilot_sin_check", "wrap_fmod")
+
+
+def short_name(mangled: str) -> str:
+    """pilot.cu's function name in a mangled one, with its template
+    argument (the probe's loop body: 0 the kernel's, 1 the earlier
+    design's)."""
+    import re
+
+    for name in PILOT_FUNCTIONS:
+        if name in mangled:
+            m = re.search(name + r"IL[ib](\d)E", mangled)
+            return name + (f"<{m.group(1)}>" if m else "")
+    return mangled
+
+
+def sass_loops(sass: str, dump: Path) -> dict:
+    """For each chain probe function in a cuobjdump -sass listing: the
+    instructions of its longest backward-branch loop (its group of four
+    steps), counted by opcode; the listing is written to ``dump``."""
+    import re
+
+    dump.write_text(sass)
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = short_name(fn.split("\n", 1)[0].strip())
+        if not name.startswith("pilot_chain_probe"):
+            continue
+        insns = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                           r"([A-Z][A-Z0-9_.]*)([^;]*);", fn)
+        addr = {int(a, 16): k for k, (a, _, _) in enumerate(insns)}
+        best = None
+        for k, (a, op, rest) in enumerate(insns):
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and m:
+                lo = addr.get(int(m.group(1), 16))
+                if lo is not None and lo < k and (best is None
+                                                  or k - lo > best[1] - best[0]):
+                    best = (lo, k)
+        if best is None:
+            continue
+        ops = {}
+        for _, op, _ in insns[best[0]:best[1] + 1]:
+            key = op.split(".")[0]
+            ops[key] = ops.get(key, 0) + 1
+        out[name] = {"loop_instructions": best[1] - best[0] + 1,
+                     "steps_per_loop": 4, "by_opcode": ops}
+    return out
+
+
+def pilot_sass(src: str, include: Path, tag: str, sass_dir: Path) -> dict:
+    """Registers and stack frames of csrc/pilot.cu's kernels and the
+    loop of each chain probe."""
+    import re
+
+    from phantomsdr_tpu_torch.ops.cuda.build import BUILD_DIR, nvcc_path
+
+    name = f"pilot_sass_{tag}"
+    build({name: src}, include, verbose=True)
+    cuobjdump = str(Path(nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(BUILD_DIR / f"lib{name}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    sass_dir.mkdir(parents=True, exist_ok=True)
+    ptxas = {}
+    current = None
+    for line in PTXAS[name].splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and current:
+            ptxas.setdefault(current, {})["stack_frame_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            ptxas.setdefault(current, {})["registers"] = int(m.group(1))
+    # convergence barriers (BSSY) per function: a data-dependent branch
+    # that the compiler keeps able to reconverge costs the chain cycles
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        ptxas.setdefault(name, {})["convergence_barriers"] = fn.count("BSSY")
+    return {"source": tag,
+            "ptxas": {short_name(k): v for k, v in ptxas.items()},
+            "probe_loops": sass_loops(sass, sass_dir / f"pilot_{tag}.sass")}
 
 
 def wf_variants(spec, rows, kw, dev, stream) -> dict:
@@ -249,45 +460,200 @@ def wf_variants(spec, rows, kw, dev, stream) -> dict:
     return res
 
 
+def pilot_case():
+    """K-PILOT at the wideband WBFM step's shape: 128 channels of 40,272
+    MPX-like samples at 192 kHz (pilot, stereo DSB, noise; every third
+    channel not FM), the pilot bandpassed from them, phases in [0, 6)."""
+    import math
+
+    import torch
+
+    from phantomsdr_tpu_torch.ops.polyphase import fir
+    from phantomsdr_tpu_torch.ops.stereo import make_stereo_params
+
+    c, n, fs = 128, 8 * 5034, 192000
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    t = torch.arange(n, device="cuda", dtype=torch.float32) / fs
+    th = 2 * math.pi * 19000.0 * t + torch.rand(c, 1, device="cuda",
+                                                generator=gen) * 6
+    x = (0.3 * torch.sin(2 * math.pi * 800 * t) + 0.09 * torch.cos(th)
+         + 0.2 * torch.sin(2 * math.pi * 1300 * t) * torch.cos(2 * th)
+         + 0.02 * torch.randn(c, n, device="cuda", generator=gen))
+    sp = make_stereo_params(fs)
+    y = fir(torch.cat([torch.zeros(c, sp.taps.shape[0] - 1, device="cuda"),
+                       x], 1), sp.taps).contiguous()
+    fm = torch.arange(c, device="cuda") % 3 != 1
+    phase0 = torch.rand(c, device="cuda", generator=gen) * 6
+    return y, x.contiguous(), fm, phase0, torch.zeros(c, device="cuda"), sp.f_nom
+
+
+def compare(parent: Path) -> dict:
+    """The parent's K-AGC and K-PILOT against the package's on the same
+    inputs (equal bit for bit), and both timed in turns."""
+    import torch
+
+    from chip_smoke import device_ms, kernel_ms
+    from phantomsdr_tpu_torch.ops.cuda import pilot
+    from phantomsdr_tpu_torch.ops.cuda.build import stream_and_device
+
+    agc_src = (parent / "agc.cu").read_text()
+    pilot_src = (parent / "pilot.cu").read_text()
+    libs = build({"parent_agc": agc_src, "parent_pilot": pilot_src}, parent)
+    res = {}
+    for case in ("bench_int16", "wbfm_float"):
+        state, x, params, fm = agc_case(case)
+        run_parent, got = agc_call(agc_launcher(libs["parent_agc"], fm), state,
+                                   x, params, fm)
+        run_parent()
+        torch.cuda.synchronize()
+        if not same(got, package_agc(state, x, params, fm)):
+            raise AssertionError(f"K-AGC {case}: the parent's output differs")
+
+        def run_package():
+            package_agc(state, x, params, fm)
+
+        t = [kernel_ms(f) for f in (run_parent, run_package, run_package,
+                                    run_parent)]
+        res[f"agc_{case}"] = {"equal_bit_for_bit": True,
+                              "parent_kernel_ms": [t[0], t[3]],
+                              "kernel_ms": [t[1], t[2]]}
+
+    y, xs, fm, phase0, freq0, f_nom = pilot_case()
+    c, n = y.shape
+    raw = libs["parent_pilot"].pilot_launch
+    raw.argtypes = pilot.KERNEL.argtypes
+    raw.restype = ctypes.c_int
+    out = [torch.empty_like(y), torch.empty_like(phase0), torch.empty_like(freq0),
+           y.new_empty((2 * c, n))]
+    stream, dev = stream_and_device(y)
+
+    def run_parent():
+        rc = raw(y.data_ptr(), phase0.data_ptr(), freq0.data_ptr(),
+                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                 xs.data_ptr(), fm.data_ptr(), out[3].data_ptr(), None, None, c,
+                 n, *pilot._loop_args(f_nom), dev, stream)
+        if rc != 0:
+            raise RuntimeError(f"parent pilot_launch failed: {rc}")
+
+    def run_package():
+        return pilot.pilot_mix(phase0, freq0, f_nom, y, xs=xs, fm_mask=fm)
+
+    run_parent()
+    phase, freq, ph, lr, _ = run_package()
+    torch.cuda.synchronize()
+    if not (torch.equal(out[0], ph) and torch.equal(out[1], phase)
+            and torch.equal(out[2], freq) and torch.equal(out[3], lr)):
+        raise AssertionError("K-PILOT: the parent's output differs")
+    probe = libs["parent_pilot"].pilot_chain_probe_launch
+    probe.argtypes = pilot.KERNEL.probe_argtypes
+    probe.restype = ctypes.c_int
+    pp, pf = torch.empty_like(phase0), torch.empty_like(freq0)
+
+    def parent_probe():
+        assert probe(y.data_ptr(), phase0.data_ptr(), freq0.data_ptr(),
+                     pp.data_ptr(), pf.data_ptr(), c, n,
+                     *pilot._loop_args(f_nom), pilot.BODY_KERNEL, dev,
+                     stream) == 0
+
+    def body(b):
+        return lambda: pilot.chain_probe(y, phase0, freq0, f_nom, b)
+
+    t = [kernel_ms(f) for f in (run_parent, run_package, run_package,
+                                run_parent)]
+    floors = {"parent": [], "earlier": [], "kernel": []}
+    order = [("parent", parent_probe), ("earlier", body(pilot.BODY_EARLIER)),
+             ("kernel", body(pilot.BODY_KERNEL))]
+    for name, fn in order + order[::-1]:
+        floors[name].append(device_ms(fn))
+    res["pilot"] = {"shape": [c, n], "equal_bit_for_bit": True,
+                    "parent_kernel_ms": [t[0], t[3]], "kernel_ms": [t[1], t[2]],
+                    "chain_floor_ms": floors}
+    return res
+
+
+PILOT_DEPTH = "constexpr int kAhead = 8;"
+
+
+def pilot_depths(depths=(2, 4, 8, 16)) -> dict:
+    """K-PILOT's kernel ms (kernel_ms, one call's device work) at the
+    WBFM shape with its register ring kAhead groups deep, from copies of
+    csrc/pilot.cu; each copy's outputs must equal the package kernel's."""
+    import torch
+
+    from chip_smoke import kernel_ms
+    from phantomsdr_tpu_torch.ops.cuda import pilot
+    from phantomsdr_tpu_torch.ops.cuda.build import CSRC, stream_and_device
+
+    src = (CSRC / "pilot.cu").read_text()
+    if src.count(PILOT_DEPTH) != 1:
+        raise RuntimeError("csrc/pilot.cu changed: its ring depth line")
+    libs = build({f"pilot_ahead{k}": src.replace(
+        PILOT_DEPTH, f"constexpr int kAhead = {k};") for k in depths})
+    y, _, _, phase0, freq0, f_nom = pilot_case()
+    c, n = y.shape
+    phase, freq, ph, _, _ = pilot.pilot_mix(phase0, freq0, f_nom, y)
+    stream, dev = stream_and_device(y)
+    res = {}
+    for k in depths:
+        fn = libs[f"pilot_ahead{k}"].pilot_launch
+        fn.argtypes = pilot.KERNEL.argtypes
+        fn.restype = ctypes.c_int
+        out = [torch.empty_like(y), torch.empty_like(phase0), torch.empty_like(freq0)]
+
+        def run(fn=fn, out=out):
+            assert fn(y.data_ptr(), phase0.data_ptr(), freq0.data_ptr(),
+                      *(o.data_ptr() for o in out), None, None, None, None,
+                      None, c, n, *pilot._loop_args(f_nom), dev, stream) == 0
+
+        run()
+        torch.cuda.synchronize()
+        if not (torch.equal(out[0], ph) and torch.equal(out[1], phase)
+                and torch.equal(out[2], freq)):
+            raise AssertionError(f"K-PILOT with kAhead {k} differs")
+        res[f"kahead_{k}_kernel_ms"] = kernel_ms(run)
+    return res
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("torch_kernel_breakdown: no CUDA device", file=sys.stderr)
         return 2
-    from phantomsdr_tpu_torch.ops.agc import AGCState, make_agc_params
     from phantomsdr_tpu_torch.ops.cuda import agc, pll, waterfall
-    from phantomsdr_tpu_torch.ops.cuda.build import require_cuda, stream_and_device
+    from phantomsdr_tpu_torch.ops.cuda.build import (
+        CSRC, BUILD_DIR, require_cuda, stream_and_device,
+    )
 
-    c, b, half = 128, 36, 180
-    n = b * half
-    params = make_agc_params(12000)
-    w = params.window
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.randn(c, n, device="cuda", generator=gen) * 0.05
-    x[:, ::97] *= 8.0
-    state = AGCState(
-        tail=torch.randn(c, w - 1, device="cuda", generator=gen) * 0.05,
-        gain=torch.rand(c, device="cuda", generator=gen) * 5.0,
-        seen=torch.tensor([0, w // 2, w - 1, w] * (c // 4),
-                          dtype=torch.int32, device="cuda"))
-    out = torch.empty(b, c, half, dtype=torch.int16, device="cuda")
-    tail, gain = torch.empty_like(state.tail), torch.empty_like(state.gain)
-    seen = torch.empty_like(state.seen)
-    stream, dev = stream_and_device(x)
-    args = (x.data_ptr(), state.tail.data_ptr(), state.gain.data_ptr(),
-            state.seen.data_ptr(), c, n, w, *agc._coeffs(params), half,
-            out.data_ptr(), tail.data_ptr(), gain.data_ptr(),
-            seen.data_ptr(), None, dev, stream)
-
-    host_only = "--host-only" in sys.argv[1:]
+    argv = sys.argv[1:]
+    host_only = "--host-only" in argv
+    parent = Path(argv[argv.index("--parent") + 1]) if "--parent" in argv else None
+    sass_dir = (Path(argv[argv.index("--sass-dir") + 1]) if "--sass-dir" in argv
+                else BUILD_DIR)
     if not host_only:
-        agc_phases(state, x, params, out, args, gain, dev, stream)
+        sources = [(CSRC, "package")] + ([(parent, "parent")] if parent else [])
+        for where, tag in sources:
+            print(json.dumps({"agc_phases": agc_phases(
+                (where / "agc.cu").read_text(), where, tag)}), flush=True)
+        for where, tag in sources:
+            print(json.dumps({"pilot_sass": pilot_sass(
+                (where / "pilot.cu").read_text(), where, tag, sass_dir)}),
+                flush=True)
+        if parent:
+            print(json.dumps({"compare": compare(parent)}), flush=True)
+        print(json.dumps({"pilot_depths": pilot_depths()}), flush=True)
 
+    state, x, params, _ = agc_case("bench_int16")
+    c, n = x.shape
+    b, half = n // 180, 180
+    out = torch.empty(b, c, half, dtype=torch.int16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
     carrier = torch.randn(c, n, dtype=torch.complex64, device="cuda",
                           generator=gen)
     zero = torch.zeros(c, device="cuda")
-    raw = agc.KERNEL.lib().agc_launch
+    run_raw, _ = agc_call(agc_launcher(agc.KERNEL.lib(), False), state, x,
+                          params, False)
+    stream, dev = stream_and_device(x)
     from chip_smoke import time_ms
 
     r, levels = 1 << 20, 11
@@ -316,7 +682,7 @@ def main() -> int:
         "require_cuda": host_us(lambda: require_cuda(x, "x", torch.float32, 2)),
         "empty_like": host_us(lambda: torch.empty_like(state.tail)),
         "stream_and_device": host_us(lambda: stream_and_device(x)),
-        "agc_launch_ctypes": host_us(lambda: raw(*args)),
+        "agc_launch_ctypes": host_us(run_raw),
     }, "events_only_ms": time_ms(lambda: None, 50)}), flush=True)
     return 0
 
