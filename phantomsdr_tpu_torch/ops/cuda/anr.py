@@ -10,10 +10,17 @@ per block, and the weights updated by lam^B * w + sum_n c1_n * win_n.
 Bound on the card: operations, three ``taps``-long products a sample
 (prediction, its window power, the weight update).  The blocks of a
 channel form a dependent chain (each needs the weights of the one
-before), so one thread block per channel runs them in order with the
-delay line, the block, the weights and the per-sample update factors in
-shared memory; ``chain_probe`` runs the same chain over the first block
-held in shared memory, without global loads and stores, as the floor.
+before), so one thread block per channel runs them in order.  The
+stream is staged by cp.async in segments of about ``SEGMENT`` samples
+(whole blocks) into a shared-memory ring of the history and two
+segments, each sample stored twice so that a segment's span is
+contiguous; the window powers, which depend on the stream alone, come
+from a parallel pass over each segment before its blocks; the chain's
+taps-long sums wait on FMA latency, their loads issued a group ahead.
+``segment_len`` mirrors the kernel's segmenting (the CPU tests hold
+that index arithmetic against the JAX package).  ``chain_probe`` runs
+the chain of blocks over the first segment's data, without output
+stores, as the floor.
 
 ``lms_blocks_plain`` is the same in plain PyTorch (a Python loop over
 blocks, vectorised over channels, in the JAX package's operation
@@ -41,8 +48,17 @@ KERNEL = CudaKernel("anr", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             F, F, I, P],
                     probe_argtypes=[P, P, P, P, P, P, P, P, P, P, I, I, I,
                                     I, I, I, F, F, I, P])
-# samples of one LMS block the kernel takes (its shared-memory staging)
+# samples of one LMS block the kernel takes
 MAX_BLOCK = 4096
+# samples per staged segment, rounded down to whole blocks (csrc/anr.cu
+# kSegTarget)
+SEGMENT = 2048
+
+
+def segment_len(bsz: int) -> int:
+    """Samples of one staged segment of the kernel: whole blocks of bsz,
+    about ``SEGMENT`` (one block where bsz is larger)."""
+    return SEGMENT // bsz * bsz if bsz < SEGMENT else bsz
 
 
 def int_pow(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -143,9 +159,10 @@ def lms_blocks(hist, w, lidx, ngamma, x, taps: int, delay: int,
 
 def chain_probe(hist, w, lidx, ngamma, x, taps: int, delay: int,
                 two_mu: float, gamma: float, notch: bool, bsz: int):
-    """The kernel's chain of blocks alone, for timing: the same blocks
-    over x's first block held in shared memory (no global loads or
-    stores inside the chain).  Returns its carries; not counted as a
+    """The kernel's chain of blocks alone, for timing: x's first segment
+    staged and its window powers formed once, then all the blocks of x
+    over that segment's data (its last block standing in for later
+    ones), with no output stores.  Returns its carries; not counted as a
     launch of the kernel.  CUDA tensors only."""
     return _run(KERNEL.probe, hist, w, lidx, ngamma, x, taps, delay,
                 two_mu, gamma, notch, bsz)[0]

@@ -20,8 +20,15 @@ Replaces the serial parts of ``nb_process`` (phantomsdr_tpu/ops/nb.py):
 Bound on the card: bytes (the working buffer and the residual read,
 the repaired buffer written); the work that does not spread over
 threads is Levinson, the two il-step recursions and the 20-slot repair
-chain.  One block per channel for each launch.  ``repair_chain_probe``
-runs the repair chain alone over 20 slots PL + 1 apart, as its floor.
+chain.  One block per channel for each launch: the frame streams
+through shared memory for the lags, Levinson runs in one warp's
+registers, the two recursions on two warps with each lane's columns in
+registers; the residual is read once, each slot's span is staged into
+a compact shared-memory buffer where overlapping spans share their
+samples, and the chain reads only shared memory and registers.
+``repair_chain_probe`` runs the repair chain alone over 20 slots PL + 1
+apart (their spans staged and backward predictions formed first), as
+its floor.
 
 ``lpc_coeffs_plain`` and ``repair_plain`` are the same in plain PyTorch,
 in the JAX package's structure (vectorised over channels); the wrappers

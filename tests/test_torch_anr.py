@@ -138,3 +138,89 @@ def test_zero_width_state_when_off():
     st = tanr.init_anr_state(3, None)
     assert st.hist.shape == (3, 0) and st.w.shape == (3, 0)
     assert not st.lidx.any() and not st.ngamma.any()
+
+
+def ring_mirror(state, params, x):
+    """K-ANR's staging and index arithmetic (csrc/anr.cu) in torch: the
+    stream X (X(i < 0) the history) goes through a ring of lkeep + 2
+    segments, each sample stored at q = (i + lkeep) mod ring and at
+    q + ring, in the kernel's order (history and segment 0 first, each
+    next segment when the one before starts); a segment's blocks read
+    the run from its start % ring on, and its window powers come from
+    one pass over that run before its blocks.  Unwritten places are NaN,
+    so a read of one shows."""
+    taps, delay = params.taps, params.delay
+    c, t = x.shape
+    bsz = tanr.block_size(params, t)
+    lkeep = taps + delay - 1
+    seg_max = kanr.segment_len(bsz)
+    ring_len = lkeep + 2 * seg_max
+    ring = torch.full((c, 2 * ring_len), float("nan"))
+
+    def put(i0, vals):
+        q = (torch.arange(vals.shape[1]) + i0 + lkeep) % ring_len
+        ring[:, q] = vals
+        ring[:, q + ring_len] = vals
+
+    put(-lkeep, state.hist[:, :lkeep].flip(1))
+    put(0, x[:, :seg_max])
+    two_mu, gamma = float(np.float32(params.two_mu)), float(np.float32(params.gamma))
+    w, lidx, ngamma = state.w, state.lidx, state.ngamma
+    outs, seg, seg_n = [], None, 0
+    taps_j = torch.arange(taps)[None, :]
+    for s0 in range(0, t, seg_max):
+        nseg = min(seg_max, t - s0)
+        if s0 + seg_max < t:
+            put(s0 + seg_max, x[:, s0 + seg_max:s0 + 2 * seg_max])
+        seg, seg_n = ring[:, s0 % ring_len:], nseg
+        win = seg[:, torch.arange(nseg)[:, None] + taps - 1 - taps_j]
+        sig = (win * win).sum(2)
+        inv = 1.0 / (sig + 1e-10)
+        for b in range(0, nseg, bsz):
+            nb = min(bsz, nseg - b)
+            n = torch.arange(b, b + nb)
+            wn = seg[:, n[:, None] + taps - 1 - taps_j]        # [C, nb, taps]
+            xn = seg[:, lkeep + n]
+            y = (wn * w[:, None, :]).sum(2)
+            err = xn - y
+            outs.append(err if params.notch else 4.0 * y)
+            sn, iv = sig[:, n], inv[:, n]
+            nel = torch.abs(err * (1.0 - two_mu * sn * iv))
+            nev = torch.abs(xn - (1.0 - two_mu * ngamma)[:, None] * y
+                            - two_mu * err * sn * iv)
+            lidx = torch.where((nev < nel).any(1), kanr.LIDX_MIN, lidx)
+            ngamma = gamma * (lidx * lidx) * (lidx * lidx) * kanr.DEN_MULT
+            lam = 1.0 - two_mu * ngamma
+            g = ((two_mu * err * iv)[:, :, None] * wn).sum(1)
+            w = kanr.int_pow(lam, nb)[:, None] * w + g
+    hist = seg[:, lkeep + seg_n - 1 - torch.arange(taps + delay)]
+    return tanr.ANRState(hist, w, lidx, ngamma), torch.cat(outs, 1)
+
+
+@pytest.mark.parametrize("two_mu,taps,delay,sizes", [
+    (1e-4, 64, 8, [9000, 5000]),       # blocks of 256, segments of 2048
+    (8e-3, 17, 1, [7000]),             # blocks of 62, segments of 2046
+    (1e-4, 128, 128, [4500]),          # history of 255, one wrap
+    (0.5, 16, 2, [4200]),              # blocks of one sample
+])
+def test_anr_ring_mirror_matches_jax(two_mu, taps, delay, sizes):
+    """The kernel's ring, read where the wrap splits a segment's run and
+    a block, against the JAX package's anr_process over the same chained
+    calls: outputs and carries within 1e-4 * max|x|, and no read of a
+    place the staging had not written."""
+    x = tones(sum(sizes), seed=9 + taps)
+    kw = dict(two_mu=two_mu, taps=taps, delay=delay)
+    jp = janr.make_anr_params(**kw)
+    tp = tanr.make_anr_params(**kw)
+    js, ts = janr.init_anr_state(C, jp), tanr.init_anr_state(C, tp)
+    at, jo, to = 0, [], []
+    for n in sizes:
+        assert n > taps + delay - 1 + 2 * kanr.segment_len(tanr.block_size(tp, n))
+        blk = x[:, at:at + n]
+        at += n
+        js, jy = janr.anr_process(js, jp, jnp.asarray(blk))
+        ts, ty = ring_mirror(ts, tp, torch.from_numpy(blk))
+        assert torch.isfinite(ty).all()
+        jo.append(np.asarray(jy))
+        to.append(ty.numpy())
+    assert_close(js, ts, np.concatenate(jo, 1), np.concatenate(to, 1), np.abs(x).max())

@@ -524,20 +524,31 @@ def anr_state(c, taps, delay, dev, seed, reset_every=0):
     return hist, w, lidx, ngamma
 
 
-@pytest.mark.parametrize("c,t,notch,two_mu,taps,delay", [
-    (128, 6480, False, 1e-4, 64, 8), (128, 6480, True, 1e-4, 64, 8),
-    (6, 1000, True, 1e-4, 64, 8), (4, 3000, False, 8e-3, 64, 8),
-    (3, 2500, False, 1e-4, 128, 128), (5, 700, True, 1e-3, 16, 2),
-])
-def test_anr_kernel_matches_plain(dev, c, t, notch, two_mu, taps, delay):
+ANR_CASES = [
+    (128, 6480, False, 1e-4, 64, 8, 256), (128, 6480, True, 1e-4, 64, 8, 256),
+    (6, 1000, True, 1e-4, 64, 8, 256), (4, 3000, False, 8e-3, 64, 8, 256),
+    (3, 2500, False, 1e-4, 128, 128, 256), (5, 700, True, 1e-3, 16, 2, 256),
+    # the kernel's edges: taps not a multiple of its group of 8 loads
+    # (17) and 128 with delay 1; delay 128 with taps 64; blocks of one
+    # sample; a row longer than the staged ring (history + two segments
+    # of 2048) with a remainder block
+    (4, 1000, False, 1e-4, 17, 8, 256), (3, 2000, True, 1e-4, 128, 1, 256),
+    (3, 1500, False, 1e-4, 64, 128, 256), (2, 300, False, 1e-4, 16, 2, 1),
+    (3, 40272, False, 1e-4, 64, 8, 256),
+]
+
+
+@pytest.mark.parametrize("c,t,notch,two_mu,taps,delay,block", ANR_CASES)
+def test_anr_kernel_matches_plain(dev, c, t, notch, two_mu, taps, delay, block):
     """Over two calls that carry the state (rows of a reset among
-    them): outputs and carries within 1e-4 * max|x|, the sums of the
-    taps-long products adding in another order."""
+    them, lidx 0: the leak automaton unarmed): outputs and carries
+    within 1e-4 * max|x|, the sums of the taps-long products adding in
+    another order."""
     g = torch.Generator(device=dev).manual_seed(t + taps)
     tt = torch.arange(2 * t, device=dev) / 12000.0
     x = (3000 * torch.sin(2 * np.pi * 800 * tt)[None]
          + 1000 * torch.randn(c, 2 * t, device=dev, generator=g))
-    bsz = max(1, min(256, t, int(0.5 / two_mu)))
+    bsz = max(1, min(block, t, int(0.5 / two_mu)))
     tol = 1e-4 * float(x.abs().max())
     kc = pc = anr_state(c, taps, delay, dev, t, reset_every=3)
     for k in range(2):
@@ -550,6 +561,63 @@ def test_anr_kernel_matches_plain(dev, c, t, notch, two_mu, taps, delay):
         assert float((ko - po).abs().max()) <= tol
         for a, b in zip(kc, pc):
             assert float((a - b).abs().max()) <= tol
+
+
+def parent_lib(dev, source: str):
+    """The parent checkout's csrc/<source>.cu built into
+    build/torch_kernels/ (the C interface is the package's).  The parent
+    is PARENT_CSRC, by default build/archive/parent/phantomsdr_tpu_torch/
+    csrc, unpacked there with ``git archive``; without it the test
+    skips."""
+    import ctypes
+    import hashlib
+    import os
+    import subprocess
+    from pathlib import Path
+
+    from phantomsdr_tpu_torch.ops.cuda.build import BUILD_DIR, NVCC_FLAGS, nvcc_path
+
+    root = Path(__file__).resolve().parents[1]
+    where = Path(os.environ.get("PARENT_CSRC", root / "build/archive/parent"
+                                "/phantomsdr_tpu_torch/csrc"))
+    cu = where / f"{source}.cu"
+    if not cu.exists():
+        pytest.skip(f"no parent kernel source at {where} (PARENT_CSRC)")
+    text = cu.read_bytes() + b"".join(h.read_bytes() for h in sorted(where.glob("*.cuh")))
+    out = BUILD_DIR / f"libparent_{source}-{hashlib.sha256(text).hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", str(where), "-o", str(out), str(cu)],
+                       check=True, capture_output=True)
+    return ctypes.CDLL(str(out))
+
+
+@pytest.mark.parametrize("c,t,notch,two_mu,taps,delay,block", ANR_CASES)
+def test_anr_kernel_equals_parent(dev, c, t, notch, two_mu, taps, delay, block):
+    """The kernel keeps every float32 operation of the parent's design
+    in its order: over two chained calls, outputs and carries equal to
+    the parent kernel's bit for bit."""
+    from phantomsdr_tpu_torch.ops.cuda.build import P, stream_and_device
+
+    fn = parent_lib(dev, "anr").anr_launch
+    fn.argtypes = anr.KERNEL.argtypes
+    g = torch.Generator(device=dev).manual_seed(t + taps)
+    x = 1000 * torch.randn(c, 2 * t, device=dev, generator=g)
+    bsz = max(1, min(block, t, int(0.5 / two_mu)))
+    kc = anr_state(c, taps, delay, dev, t, reset_every=3)
+    for k in range(2):
+        xs = x[:, k * t:(k + 1) * t].contiguous()
+        pout = torch.empty_like(xs)
+        pnew = tuple(torch.empty_like(v) for v in kc)
+        stream, d = stream_and_device(xs)
+        assert fn(*(P(v.data_ptr()) for v in (xs, *kc, pout, *pnew)), c, t, taps,
+                  delay, bsz, int(notch), float(np.float32(two_mu)),
+                  float(np.float32(0.1)), d, P(stream)) == 0
+        kc, ko = anr.lms_blocks(*kc, xs, taps, delay, two_mu, 0.1, notch, bsz)
+        torch.cuda.synchronize()
+        assert torch.equal(ko, pout)
+        for a, b in zip(kc, pnew):
+            assert torch.equal(a, b)
 
 
 def test_anr_chain_probe_runs_the_kernels_loop(dev):
@@ -626,6 +694,119 @@ def test_nb_kernel_matches_plain(dev, c, t, order, samples):
     assert int(kcount.max()) > 0
 
 
+def nb_edge_frame(c, t, dev, kind, pl):
+    """[C, t] rows for the blanker's edges: ``packed``, 25 one-sample
+    clicks of random sign PL + 1 apart from sample 400 on (the search
+    fills its 20 slots PL + 1 apart, their repair windows overlapping;
+    random signs, or the LPC fit predicts the comb away); ``none``, the
+    tone and noise alone; ``short``, two clicks in a frame of a few
+    hundred samples."""
+    g = torch.Generator(device=dev).manual_seed(t + len(kind))
+    if kind == "short":
+        return nb_frame(c, t, dev, t, clicks=2)
+    tt = torch.arange(t, device=dev) / 12000.0
+    x = (3000 * torch.sin(2 * np.pi * 500 * tt)[None]
+         + 250 * torch.randn(c, t, device=dev, generator=g))
+    if kind == "packed":
+        sign = torch.randint(0, 2, (c, 25), device=dev, generator=g) * 2 - 1
+        x[:, 400:400 + 25 * (pl + 1):pl + 1] += 20000 * sign
+    return x
+
+
+@pytest.mark.parametrize("kind,c,t,order,samples", [
+    ("packed", 4, 3000, 32, 11), ("packed", 3, 6480, 40, 201),
+    ("packed", 3, 2500, 1, 3), ("none", 4, 6480, 32, 11),
+    ("short", 4, 300, 32, 11), ("short", 3, 120, 8, 5),
+])
+def test_nb_kernel_edges_match_plain(dev, kind, c, t, order, samples):
+    """Both launches against the plain versions on the same inputs at
+    the repair chain's edges: counts and positions equal (a channel with
+    20 slots PL + 1 apart for the packed clicks; none without impulses,
+    at a threshold of 12 residual sigmas, past the tail of tone and
+    noise), the repaired buffer within 1e-5 * max|x|, the LPC fit within
+    1e-3."""
+    from phantomsdr_tpu_torch.ops.nb import init_nb_state, make_nb_params
+
+    thresh = 12.0 if kind == "none" else 5.0
+    p = make_nb_params(thresh, order, samples)
+    il, lo = p.impulse_len, order + (p.impulse_len - 1) // 2
+    x = nb_edge_frame(c, t, dev, kind, (il - 1) // 2)
+    wb = torch.cat([init_nb_state(c, p, dev).tail, x], 1).contiguous()
+    got = nb.lpc_coeffs(wb, t, order, il)
+    for a, b in zip(got, nb.lpc_coeffs_plain(wb, t, order, il)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    lpcs, cf, cb = got
+    temp = fir_fresh(lpcs, fir_fresh(lpcs.flip(1), wb[:, lo:lo + t])).contiguous()
+    wbf, kcount, kpos, kthr = nb.repair(wb, temp, lpcs, cf, cb, thresh, order, il)
+    pwbf, pcount, ppos, pthr = nb.repair_plain(wb, temp, lpcs, cf, cb, thresh, order, il)
+    torch.cuda.synchronize()
+    assert torch.equal(kcount, pcount) and torch.equal(kpos, ppos)
+    torch.testing.assert_close(kthr, pthr, rtol=1e-5, atol=0)
+    assert float((wbf - pwbf).abs().max()) <= 1e-5 * float(x.abs().max())
+    if kind == "packed":
+        full = kcount == nb.N_IMPULSE_COUNT
+        assert bool(full.any())
+        gaps = (kpos[full, 1:] - kpos[full, :-1]).min()
+        assert int(gaps) == (il - 1) // 2 + 1 < il
+    elif kind == "none":
+        assert int(kcount.max()) == 0 and torch.equal(wbf, wb)
+
+
+NB_PARENT_CASES = [
+    ("clicks", 128, 6480, 32, 11), ("clicks", 6, 2000, 40, 21), ("clicks", 5, 1500, 1, 3),
+    ("clicks", 4, 3000, 16, 201), ("clicks", 3, 40272, 32, 11),
+    ("packed", 4, 3000, 32, 11), ("packed", 3, 6480, 40, 201), ("none", 4, 6480, 32, 11),
+    ("short", 4, 300, 32, 11), ("short", 3, 120, 8, 5),
+]
+
+
+@pytest.mark.parametrize("kind,c,t,order,samples", NB_PARENT_CASES)
+def test_nb_kernels_equal_parent(dev, kind, c, t, order, samples):
+    """Both launches keep every float32 operation of the parent's design
+    in its order: lpcs, the prediction matrices, the repaired buffer,
+    counts, positions and thresholds equal to the parent kernels' bit for
+    bit on the same inputs (and the repair probe's buffer likewise)."""
+    from phantomsdr_tpu_torch.ops.cuda.build import P, stream_and_device
+    from phantomsdr_tpu_torch.ops.nb import make_nb_params
+
+    lib = parent_lib(dev, "nb")
+    fl, fr, fp = lib.nb_lpc_launch, lib.nb_repair_launch, lib.nb_repair_chain_probe_launch
+    fl.argtypes = nb.LPC_KERNEL.argtypes
+    fr.argtypes = nb.REPAIR_KERNEL.argtypes
+    fp.argtypes = nb.REPAIR_KERNEL.probe_argtypes
+    p = make_nb_params(5.0, order, samples)
+    il, pl = p.impulse_len, (p.impulse_len - 1) // 2
+    lo = order + pl
+    x = (nb_frame(c, t, dev, t + order) if kind == "clicks"
+         else nb_edge_frame(c, t, dev, kind, pl))
+    g = torch.Generator(device=dev).manual_seed(order)
+    tail = 1000 * torch.randn(c, 2 * order + 2 * pl, device=dev, generator=g)
+    wb = torch.cat([tail, x], 1).contiguous()
+    wlen = wb.shape[1]
+    stream, d = stream_and_device(wb)
+    got = nb.lpc_coeffs(wb, t, order, il)
+    want = tuple(torch.empty_like(v) for v in got)
+    assert fl(*(P(v.data_ptr()) for v in (wb, *want)), c, wlen, t, order, il, d,
+              P(stream)) == 0
+    lpcs, cf, cb = got
+    temp = fir_fresh(lpcs, fir_fresh(lpcs.flip(1), wb[:, lo:lo + t])).contiguous()
+    rep = nb.repair(wb, temp, lpcs, cf, cb, 5.0, order, il)
+    prep = (torch.empty_like(wb), torch.empty_like(rep[1]), torch.empty_like(rep[2]),
+            torch.empty_like(rep[3]))
+    assert fr(*(P(v.data_ptr()) for v in (wb, temp, lpcs, cf, cb, *prep)), c, wlen, t,
+              order, il, float(np.float32(5.0)), d, P(stream)) == 0
+    torch.cuda.synchronize()
+    for a, b in zip(got + rep, want + prep):
+        assert torch.equal(a, b)
+    if pl + 19 * (pl + 1) + 2 * order + il <= wlen:
+        probe = nb.repair_chain_probe(wb, temp, lpcs, cf, cb, order, il)
+        pprobe = wb.clone()
+        assert fp(*(P(v.data_ptr()) for v in (wb, cf, cb, pprobe, temp)), c, wlen, t,
+                  order, il, d, P(stream)) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(probe, pprobe)
+
+
 def test_nb_lpc_kernel_matches_plain(dev):
     """Launch 1 alone: lpcs and the prediction matrices against the
     plain Levinson and recursions (atol 1e-4 on coefficients of order 1:
@@ -652,9 +833,9 @@ def test_nb_repair_chain_probe_runs(dev):
 
 def test_failed_launch_raises_without_fallback(dev):
     """A CUDA tensor whose launch the kernel refuses (K-ANR with a delay
-    line too long for its 48 KB of shared memory) raises; nothing falls
+    line too long for its 227 KB of shared memory) raises; nothing falls
     back to the plain version, and the launch is not counted."""
-    c, taps, delay = 2, 4000, 8
+    c, taps, delay = 2, 20000, 8
     state = anr_state(c, taps, delay, dev, 1)
     x = torch.zeros(c, 512, device=dev)
     before = anr.KERNEL.launches

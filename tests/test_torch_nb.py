@@ -200,3 +200,87 @@ def test_nb_params_and_state_match_jax():
     p = tnb.make_nb_params()
     assert tnb.init_nb_state(3, p).tail.shape == (3, 2 * 32 + 2 * 5)
     assert tnb.init_nb_state(3, None).tail.shape == (3, 0)
+
+
+def span_mirror(wb, temp, lpcs, coef_f, coef_b_rev, thresh, order, il):
+    """K-NB's repair launch (csrc/nb.cu) in torch, channel by channel,
+    with its index arithmetic: slot j's span wb[p_j .. p_j + 2*order +
+    il) sits in a compact buffer at off_j, off_j = off_{j-1} + min(p_j -
+    p_{j-1}, span), twice (original and current samples); the backward
+    predictions read the original, the chain reads orig + (current -
+    orig) and writes the current; the repaired buffer takes a sample
+    from the current samples of the latest span that starts at or
+    before it, if the span reaches it, else from wb.  Unwritten places
+    are NaN, so a read of one shows.  (wbf, count, positions)."""
+    c, wlen = wb.shape
+    pl = knb.half_len(il)
+    span = 2 * order + il
+    thr = knb.threshold_plain(temp, lpcs, thresh, order)
+    count, positions = knb.search_plain(temp, thr, order, pl)
+    wfw, wbw = knb.crossfade(il, wb.device)
+    wbf = wb.clone()
+    for ch in range(c):
+        pos = positions[ch, :int(count[ch])].tolist()
+        if not pos:
+            continue
+        offs = [0]
+        for j in range(1, len(pos)):
+            offs.append(offs[-1] + min(pos[j] - pos[j - 1], span))
+        orig_c = torch.full((offs[-1] + span,), float("nan"))
+        for p, off in zip(pos, offs):
+            orig_c[off:off + span] = wb[ch, p:p + span]
+        cur_c = orig_c.clone()
+        for p, off in zip(pos, offs):
+            bp = (coef_b_rev[ch] * orig_c[off + order + il:off + span]).sum(1)
+            basis = orig_c[off:off + order] + (cur_c[off:off + order]
+                                               - orig_c[off:off + order])
+            fp = (coef_f[ch] * basis).sum(1)
+            cur_c[off + order:off + order + il] = wfw * fp + wbw * bp
+        n = torch.arange(wlen)
+        pos_t, offs_t = torch.tensor(pos), torch.tensor(offs)
+        j = torch.searchsorted(pos_t, n, right=True) - 1
+        jc = j.clamp(min=0)
+        inside = (j >= 0) & (n < pos_t[jc] + span)
+        idx = torch.where(inside, offs_t[jc] + n - pos_t[jc], 0)
+        wbf[ch] = torch.where(inside, cur_c[idx], wb[ch])
+    return wbf, count, positions
+
+
+@pytest.mark.parametrize("recipe,params", [("burst", (5.0, 32, 11)),
+                                           ("impulses", (5.0, 32, 11)),
+                                           ("burst", (4.0, 16, 5)),
+                                           ("burst", (5.0, 1, 3))])
+def test_nb_span_mirror_matches_jax(recipe, params):
+    """The kernel's compact spans against the JAX package's nb_process
+    over chained frames: the burst packs detections PL + 1 apart (spans
+    and repair windows overlap, forward bases hold earlier repairs),
+    the separate impulses leave spans apart; counts and positions
+    equal, output and tail within 1e-5 * max|x|, no read of an
+    unstaged place."""
+    x = channels(burst() if recipe == "burst" else impulses())
+    jp, tp = jnb.make_nb_params(*params), tnb.make_nb_params(*params)
+    order, il = tp.taps, tp.impulse_len
+    lo = order + knb.half_len(il)
+    js, tail = jnb.init_nb_state(x.shape[0], jp), tnb.init_nb_state(x.shape[0], tp).tail
+    scale = np.abs(x).max()
+    overlapped = False
+    for i in range(0, x.shape[1], T):
+        blk = x[:, i:i + T]
+        t = blk.shape[1]
+        want_count, want_pos = jax_search(js, jp, blk)
+        js, jy = jax_nb_process(js, jp, jnp.asarray(blk))
+        wb = torch.cat([tail, torch.from_numpy(blk)], 1)
+        lpcs, cf, cb = knb.lpc_coeffs_plain(wb, t, order, il)
+        temp = tnb.fir_fresh(lpcs, tnb.fir_fresh(lpcs.flip(1), wb[:, lo:lo + t]))
+        wbf, count, positions = span_mirror(wb, temp, lpcs, cf, cb, tp.thresh, order, il)
+        assert torch.isfinite(wbf).all()
+        np.testing.assert_array_equal(count.numpy(), want_count)
+        np.testing.assert_array_equal(positions.numpy(), want_pos)
+        np.testing.assert_allclose(wbf[:, lo:lo + t].numpy(), np.asarray(jy), rtol=0,
+                                   atol=1e-5 * scale)
+        np.testing.assert_allclose(wbf[:, t:].numpy(), np.asarray(js.tail), rtol=0,
+                                   atol=1e-5 * scale)
+        gaps = np.diff(want_pos, axis=1)[np.arange(19)[None] < want_count[:, None] - 1]
+        overlapped |= bool((gaps < il).any())
+        tail = wbf[:, t:]
+    assert overlapped == (recipe == "burst")

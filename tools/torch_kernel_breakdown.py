@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where K-AGC's, K-PILOT's and K-WF's time goes on the card, at
-chip_smoke.py's shapes.
+"""Where K-AGC's, K-PILOT's, K-WF's, K-ANR's and K-NB's time goes on the
+card, at chip_smoke.py's shapes.
 
-    python3 tools/torch_kernel_breakdown.py [--host-only]
+    python3 tools/torch_kernel_breakdown.py [--host-only | --only LINES]
         [--parent CSRC_DIR] [--sass-dir DIR]
 
 Prints one JSON line each:
@@ -36,6 +36,26 @@ Prints one JSON line each:
   integer and went to log2f, and of those the ones where lg2.approx
   alone would have given another int8 (``differ_at_edge``), and
   elsewhere (``differ_elsewhere``, which must be 0).
+- ``anr_phases``: K-ANR's cycles a block by phase (thread 0's clock64
+  between stamps that sit after block barriers, median over the 128
+  channels of [128, 6480], LMS NR at taps 64, delay 8, blocks of 256),
+  beside its chain probe's, from an instrumented copy of csrc/anr.cu
+  whose outputs must equal the package kernel's.  The ``slide`` design
+  (a block staged at a time, the history slid): stage, predict, update,
+  combine, slide; the ``ring`` design: the segment hand-over, the
+  prediction's sums and its outputs + barrier, the update's sums and
+  its stores + barrier, combine, and its first producer's cycles a
+  segment; ``other`` is the rest (the prologue).
+- ``nb_phases``: K-NB's cycles by phase of each launch at [128, 6554]
+  (clicks in a tone, order 32, il 11): lags, Levinson, the recursions
+  (the ``tiles`` design: forward and backward apart); the repair
+  launch's statistics, ballot, search (+ copy in ``tiles``; + spans in
+  ``spans``), backward predictions, repairs and writeback (``spans``),
+  and the same for its chain probe; instrumented likewise.
+- ``anr_variants``: K-ANR's kernel ms at that shape in copies of
+  csrc/anr.cu: each chain thread running 1, 2, 3 (as built) or 5
+  adjacent chains, the group loops kept from further unrolling; each
+  copy's outputs must equal the package kernel's.
 - ``host_us``: microseconds of host time of one call of each wrapper
   and of its parts, each call made on an idle card (the time in which a
   lone call leaves the card waiting), and ``events_only_ms``:
@@ -44,16 +64,18 @@ Prints one JSON line each:
 
 ``--parent CSRC_DIR`` (the ``phantomsdr_tpu_torch/csrc`` of another
 checkout, e.g. unpacked with ``git archive`` into build/archive/) adds
-that checkout's K-AGC and K-PILOT beside the package's: its
-``agc_phases`` and ``pilot_sass``, and a ``compare`` line that holds its
-outputs equal to the package kernels' bit for bit on the same inputs and
-times both in turns (parent, package, package, parent: kernel_ms, the
-device work of one call) with their chain probes.  The parent's C
-interfaces must be the package's.
+that checkout's K-AGC, K-PILOT, K-ANR and K-NB beside the package's:
+its ``agc_phases``, ``pilot_sass``, ``anr_phases`` and ``nb_phases``,
+and a ``compare`` line that holds its outputs equal to the package
+kernels' bit for bit on the same inputs and times both in turns
+(parent, package, package, parent: kernel_ms, the device work of one
+call) with their chain probes.  The parent's C interfaces must be the
+package's.
 
-``--host-only`` prints only ``host_us``: copied into another checkout's
-tools/, the script then times that checkout's wrappers (their
-signatures have not changed).
+``--only LINES`` (comma-separated names of the lines above) prints only
+those.  ``--host-only`` prints only ``host_us``: copied into another
+checkout's tools/, the script then times that checkout's wrappers
+(their signatures have not changed).
 
 Needs one CUDA card and nvcc.
 """
@@ -488,18 +510,17 @@ def pilot_case():
 
 
 def compare(parent: Path) -> dict:
-    """The parent's K-AGC and K-PILOT against the package's on the same
-    inputs (equal bit for bit), and both timed in turns."""
+    """The parent's K-AGC, K-PILOT, K-ANR and K-NB against the package's
+    on the same inputs (equal bit for bit), and both timed in turns."""
     import torch
 
     from chip_smoke import device_ms, kernel_ms
     from phantomsdr_tpu_torch.ops.cuda import pilot
     from phantomsdr_tpu_torch.ops.cuda.build import stream_and_device
 
-    agc_src = (parent / "agc.cu").read_text()
-    pilot_src = (parent / "pilot.cu").read_text()
-    libs = build({"parent_agc": agc_src, "parent_pilot": pilot_src}, parent)
-    res = {}
+    libs = build({f"parent_{name}": (parent / f"{name}.cu").read_text()
+                  for name in ("agc", "pilot", "anr", "nb")}, parent)
+    res = {"anr": compare_anr(libs["parent_anr"]), "nb": compare_nb(libs["parent_nb"])}
     for case in ("bench_int16", "wbfm_float"):
         state, x, params, fm = agc_case(case)
         run_parent, got = agc_call(agc_launcher(libs["parent_agc"], fm), state,
@@ -571,6 +592,137 @@ def compare(parent: Path) -> dict:
     return res
 
 
+def in_turns(parent_fn, package_fn) -> tuple[list, list]:
+    """kernel_ms of the parent's and the package's calls in turns
+    (parent, package, package, parent)."""
+    from chip_smoke import kernel_ms
+
+    t = [kernel_ms(f) for f in (parent_fn, package_fn, package_fn, parent_fn)]
+    return [t[0], t[3]], [t[1], t[2]]
+
+
+def compare_anr(lib) -> dict:
+    """The parent's K-ANR against the package's at chip_smoke.py's shape
+    over two calls that carry the state (outputs and carries equal bit
+    for bit), then both and their chain probes timed in turns."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import anr
+
+    state, x, lms = anr_case()
+    c, t = x.shape
+    x2 = torch.roll(x, 1000, 1).contiguous()
+    st = state
+    for k, xs in enumerate((x, x2)):
+        run, got = anr_raw_call(lib.anr_launch, st, xs, lms)
+        run()
+        new, out = anr.lms_blocks(*st, xs, *lms)
+        torch.cuda.synchronize()
+        if not same(got, (*new, out)):
+            raise AssertionError(f"K-ANR call {k + 1}: the parent's output differs")
+        st = new
+    run_parent, _ = anr_raw_call(lib.anr_launch, state, x, lms)
+    probe_parent, _ = anr_raw_call(lib.anr_chain_probe_launch, state, x, lms)
+    parent_ms, package_ms = in_turns(run_parent, lambda: anr.lms_blocks(*state, x, *lms))
+    parent_floor, floor = in_turns(probe_parent, lambda: anr.chain_probe(*state, x, *lms))
+    return {"shape": [c, t], "equal_bit_for_bit": True, "chained_calls": 2,
+            "parent_kernel_ms": parent_ms, "kernel_ms": package_ms,
+            "parent_chain_floor_ms": parent_floor, "chain_floor_ms": floor}
+
+
+def compare_nb(lib) -> dict:
+    """The parent's K-NB launches against the package's at chip_smoke.py's
+    shape (lpcs, coef_f, coef_b_rev, the repaired buffer, count,
+    positions and thr equal bit for bit), then both timed in turns: the
+    two launches of a call, and the repair chain probes."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import nb
+
+    case = nb_case()
+    wb, temp, lpcs, cf, cb, t, order, il, thresh = case
+    runs, got = nb_raw_calls(lib, case)
+    for fn in runs:
+        fn()
+    want = package_nb(case)
+    torch.cuda.synchronize()
+    for name, a, b in (("LPC fit", got[0], want[0]), ("repairs", got[1], want[1])):
+        if not same(a, b):
+            raise AssertionError(f"K-NB {name}: the parent's output differs")
+    counts = got[1][1]
+
+    def run_parent():
+        runs[0]()
+        runs[1]()
+
+    def run_lpc():
+        nb.lpc_coeffs(wb, t, order, il)
+
+    def run_repair():
+        nb.repair(wb, temp, lpcs, cf, cb, thresh, order, il)
+
+    def run_package():
+        run_lpc()
+        run_repair()
+
+    parent_ms, package_ms = in_turns(run_parent, run_package)
+    lpc_parent, lpc_ms = in_turns(runs[0], run_lpc)
+    rep_parent, rep_ms = in_turns(runs[1], run_repair)
+    parent_floor, floor = in_turns(runs[2], lambda: nb.repair_chain_probe(
+        wb, temp, lpcs, cf, cb, order, il))
+    return {"shape": list(wb.shape), "equal_bit_for_bit": True,
+            "impulses": [int(counts.min()), int(counts.max())],
+            "parent_kernel_ms": parent_ms, "kernel_ms": package_ms,
+            "parent_lpc_ms": lpc_parent, "lpc_ms": lpc_ms,
+            "parent_repair_ms": rep_parent, "repair_ms": rep_ms,
+            "parent_chain_floor_ms": parent_floor, "chain_floor_ms": floor}
+
+
+ANR_RUN = "constexpr int kRun = 3;"
+ANR_LOOPS = ("    for (; j + kGroup <= taps; j += kGroup) {\n",
+             "    for (; n + kGroup <= len; n += kGroup) {\n")
+# copies of csrc/anr.cu: (text, its replacement) pairs
+ANR_VARIANTS = {
+    **{f"krun_{k}": [(ANR_RUN, f"constexpr int kRun = {k};")] for k in (1, 2, 3, 4, 5, 6, 8)},
+    "loops_not_unrolled": [(loop, "#pragma unroll 1\n" + loop) for loop in ANR_LOOPS],
+}
+
+
+def anr_variants() -> dict:
+    """K-ANR's kernel ms (kernel_ms) at chip_smoke.py's shape in copies
+    of csrc/anr.cu: kRun adjacent chains a thread (1, 2, 3 as built,
+    5), and the group loops kept from further unrolling; each copy's
+    outputs must equal the package kernel's (every sum keeps its
+    order)."""
+    import torch
+
+    from chip_smoke import kernel_ms
+    from phantomsdr_tpu_torch.ops.cuda import anr
+    from phantomsdr_tpu_torch.ops.cuda.build import CSRC
+
+    src = (CSRC / "anr.cu").read_text()
+    texts = {}
+    for name, subs in ANR_VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"csrc/anr.cu changed: {old!r}")
+            text = text.replace(old, new)
+        texts[f"anr_{name}"] = text
+    libs = build(texts)
+    state, x, lms = anr_case()
+    new, out = anr.lms_blocks(*state, x, *lms)
+    res = {}
+    for name in ANR_VARIANTS:
+        run, got = anr_raw_call(libs[f"anr_{name}"].anr_launch, state, x, lms)
+        run()
+        torch.cuda.synchronize()
+        if not same(got, (*new, out)):
+            raise AssertionError(f"K-ANR {name} differs")
+        res[f"{name}_kernel_ms"] = kernel_ms(run)
+    return res
+
+
 PILOT_DEPTH = "constexpr int kAhead = 8;"
 
 
@@ -614,6 +766,339 @@ def pilot_depths(depths=(2, 4, 8, 16)) -> dict:
     return res
 
 
+# K-ANR's and K-NB's phase stamps: threads 0 and 96 of each block
+# accumulate the clock64 cycles between their stamps into the phase
+# named by the stamp (the phases end at barriers, so thread 0's clock is
+# its block's or its chain's; thread 96 is K-ANR's first producer).
+# STAMP_END stores them at slot ``off`` + the block (+ 1024 for thread
+# 96; 8 values a slot, the 8th the total).
+NOISE_MACROS = r"""
+__device__ long long g_stamps[8 * 8192];
+#define STAMP_INIT const long long stamp0_ = clock64(); long long ph_[7] = {0, 0, 0, 0, 0, 0, 0}; long long tp_ = stamp0_;
+#define PH(k) { const long long tn_ = clock64(); ph_[k] += tn_ - tp_; tp_ = tn_; }
+#define STAMP_END(off) if (threadIdx.x % 32 == 0 && (threadIdx.x == 0 || threadIdx.x == STAMP_SECOND)) { long long* st_ = g_stamps + 8 * ((off) + (threadIdx.x ? 1024 : 0) + blockIdx.x); for (int k_ = 0; k_ < 7; ++k_) st_[k_] = ph_[k_]; st_[7] = clock64() - stamp0_; }
+#ifndef STAMP_SECOND
+#define STAMP_SECOND 96
+#endif
+"""
+NOISE_READ = """
+extern "C" int read_stamps(long long* host, int slots) {
+    return static_cast<int>(cudaMemcpyFromSymbol(host, g_stamps, sizeof(long long) * 8 * slots));
+}
+"""
+# slots: K-ANR's kernel from 0, its probe from 4096; K-NB's LPC launch
+# from 0, its repair launch from 2048, the repair probe from 4096
+ANR_PROBE_SLOT, NB_REPAIR_SLOT, NB_PROBE_SLOT = 4096, 2048, 4096
+
+# (anchor, text, before): one list per design of each source; the
+# script takes the list whose anchors the source holds
+ANR_STAMPS = {
+    "slide": (["stage", "predict", "update", "combine", "slide"], [
+        ("    const int tid = threadIdx.x;\n    const int hl = taps + a.delay;\n",
+         "    STAMP_INIT\n", False),
+        ("        n_last = nb;\n", "        PH(0);\n", False),
+        ("        if (!kProbe || s == 0)\n"
+         "            for (int n = tid; n < nb; n += kThreads) seg[lkeep + n] = "
+         "a.x[row + s + n];\n        __syncthreads();\n", "        PH(1);\n", False),
+        ("        if (__syncthreads_or(trig)) lidx = 120.0f;\n", "        PH(2);\n", False),
+        ("            part[k] = g;\n        }\n        __syncthreads();\n",
+         "        PH(3);\n", False),
+        ("            w[t] = __fadd_rn(__fmul_rn(lam_b, w[t]), g);\n        }\n",
+         "        PH(4);\n", False),
+        ("    }\n    // carries: the newest", "        PH(5);\n", True),
+        ("    if (tid == 0) {\n        a.lidx1[c] = lidx;\n",
+         "    STAMP_END(kProbe ? 4096 : 0)\n", True),
+    ]),
+    "ring": (["segment hand-over", "predict: outputs + barrier", "update: stores + barrier",
+             "combine", "predict: sums", "update: sums"], [
+        ("    const float* xrow = a.x + row;\n", "    STAMP_INIT\n", False),
+        ("    if (nsegs > 0) powers(0, tid, kThreads);\n    __syncthreads();\n",
+         "    PH(0);\n", False),
+        ("        if (chain_sync_or(trig)) lidx = 120.0f;\n", "        PH(2);\n", False),
+        ("                if (t0 + j < taps) part[p * taps + t0 + j] = g[j];\n"
+         "        }\n        chain_sync();\n", "        PH(3);\n", False),
+        ("            w[t] = __fadd_rn(__fmul_rn(lam_b, w[t]), g);\n        }\n"
+         "        chain_sync();\n", "        PH(4);\n", False),
+        ("                powers(k + 1, rank, kProducers);\n", "                PH(5);\n", False),
+        ("            sliding_sums<kRun, false>(seg + boff + taps - 1 + n0, w, taps, y);\n",
+         "            PH(5);\n", False),
+        ("            sliding_update<kRun>(c1 + p * cstride, seg + boff + taps - 1 - t0 + n0, "
+         "n1 - n0, g);\n", "            PH(6);\n", False),
+        ("        if (kProbe) break;\n    }\n", "        PH(1);\n", True),
+        ("    // carries: the newest", "    STAMP_END(kProbe ? 4096 : 0)\n", True),
+    ]),
+}
+NB_STAMPS = {
+    "tiles": (["lags", "levinson", "forward", "backward"],
+            ["statistics", "ballot", "search + copy", "repairs"], [
+        ("    const float* base = wb + static_cast<long long>(c) * wlen + order + pl;\n",
+         "    STAMP_INIT\n", False),
+        ("        r[tid] = s;\n    }\n    __syncthreads();\n", "    PH(0);\n", False),
+        ("            alfa = __fmul_rn(alfa, __fsub_rn(1.0f, __fmul_rn(k, k)));\n"
+         "        }\n    }\n    __syncthreads();\n", "    PH(1);\n", False),
+        ("            cf[i * order + tid] = v;\n        }\n        __syncthreads();\n    }\n",
+         "    PH(2);\n", False),
+        ("            cb[(il - 1 - i) * order + tid] = v;\n        }\n"
+         "        __syncthreads();\n    }\n", "    PH(3);\n    STAMP_END(0)\n", False),
+        ("    const int nwords = t > lo ? (t - lo + 31) / 32 : 0;\n",
+         "    STAMP_INIT\n", False),
+        ("            thr_s = __fmul_rn(thresh, __fsqrt_rn(__fmul_rn(sigma2, power)));\n"
+         "        }\n        __syncthreads();\n", "        PH(0);\n", False),
+        ("            if (lane == 0) masks[w] = m;\n        }\n        __syncthreads();\n",
+         "        PH(1);\n", False),
+        ("        for (int n = tid; n < wlen; n += kThreads) out[n] = orig[n];\n"
+         "        __syncthreads();\n    }\n    __syncthreads();\n", "    PH(2);\n", False),
+        ("    if (!kProbe) {\n        if (tid < kSlots)",
+         "    PH(3);\n    STAMP_END(kProbe ? 4096 : 2048)\n", True),
+    ]),
+    "spans": (["lags", "levinson", "recursions"],
+            ["statistics", "ballot", "search + spans", "backward", "repairs", "writeback"], [
+        ("    const float* base = wb + static_cast<long long>(c) * wlen + order + pl;\n",
+         "    STAMP_INIT\n", False),
+        ("        r[tid] = s;\n    }\n    __syncthreads();\n", "    PH(0);\n", False),
+        ("                out[m] = L[m];\n            }\n    }\n    __syncthreads();\n",
+         "    PH(1);\n", False),
+        ("            if (lane + 32 < order) row[lane + 32] = v1;\n        }\n    }\n",
+         "    PH(2);\n    STAMP_END(0)\n", False),
+        ("    float* res_s = with_res ? smem + lay.res : nullptr;\n", "    STAMP_INIT\n", False),
+        ("            if (lane == 0) thr_s = __fmul_rn(thresh, __fsqrt_rn(__fmul_rn(sigma2, power)));\n"
+         "        }\n        __syncthreads();\n", "        PH(0);\n", False),
+        ("            if (lane == 0) masks[w] = m;\n        }\n        __syncthreads();\n",
+         "        PH(1);\n", False),
+        ("        cur_c[off_s[j] + e] = v;\n    }\n    __syncthreads();\n", "    PH(2);\n", False),
+        ("        bpatch[k] = bp;\n    }\n    __syncthreads();\n", "    PH(3);\n", False),
+        ("    // 7. the repaired buffer in one pass", "    PH(4);\n", True),
+        ("    if (!kProbe) {\n        if (tid < kSlots)",
+         "    PH(5);\n    STAMP_END(kProbe ? 4096 : 2048)\n", True),
+    ]),
+}
+
+
+def stamped(src: str, designs: dict, what: str) -> tuple[str, str, tuple]:
+    """The source with the stamps of the design whose anchors it holds:
+    (design, instrumented source, phase names)."""
+    for design, spec in designs.items():
+        anchors = spec[-1]
+        if all(src.count(a) == 1 for a, _, _ in anchors):
+            for anchor, text, before in anchors:
+                src = src.replace(anchor, text + anchor if before else anchor + text)
+            src = src.replace("namespace {\n", NOISE_MACROS + "namespace {\n", 1)
+            return design, src + NOISE_READ, spec[:-1]
+    raise RuntimeError(f"{what}: no stamp design matches the source")
+
+
+def anr_case():
+    """K-ANR at chip_smoke.py's shape: 128 channels of 6480 samples (an
+    800 Hz tone in noise, int16 scale), LMS NR at the defaults (taps 64,
+    delay 8, 25 blocks of 256 and one of 80), the state of a first call."""
+    import math
+
+    import torch
+
+    from phantomsdr_tpu_torch.ops.anr import block_size, init_anr_state, make_anr_params
+
+    c, t = 128, 6480
+    pa = make_anr_params(notch=False)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tt = torch.arange(t, device="cuda") / 12000.0
+    x = (3000 * torch.sin(2 * math.pi * 800 * tt
+                          + torch.rand(c, 1, device="cuda", generator=gen))
+         + 1000 * torch.randn(c, t, device="cuda", generator=gen)).contiguous()
+    lms = (pa.taps, pa.delay, pa.two_mu, pa.gamma, pa.notch, block_size(pa, t))
+    return tuple(init_anr_state(c, pa, "cuda")), x, lms
+
+
+def anr_raw_call(fn, state, x, lms):
+    """A callable that calls the ctypes launcher ``fn`` (K-ANR's C
+    interface) on the case, and its outputs (hist, w, lidx, ngamma, out)."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import anr
+    from phantomsdr_tpu_torch.ops.cuda.build import stream_and_device
+
+    taps, delay, two_mu, gamma, notch, bsz = lms
+    c, t = x.shape
+    out = torch.empty_like(x)
+    new = tuple(torch.empty_like(v) for v in state)
+    stream, dev = stream_and_device(x)
+    fn.argtypes = anr.KERNEL.argtypes
+    fn.restype = ctypes.c_int
+    args = (x.data_ptr(), *(v.data_ptr() for v in state), out.data_ptr(),
+            *(v.data_ptr() for v in new), c, t, taps, delay, bsz, int(notch),
+            float(np.float32(two_mu)), float(np.float32(gamma)), dev, stream)
+
+    def run():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"K-ANR launch failed: {rc}")
+
+    return run, (*new, out)
+
+
+def nb_case():
+    """K-NB at chip_smoke.py's shape: 128 channels, a frame of 6480
+    samples with clicks (chip_smoke.click_rows), order 32, il 11, the
+    state of a first call; the residual from the package's launch 1 and
+    FIRs.  (wb, temp, lpcs, coef_f, coef_b_rev, t, order, il, thresh)."""
+    import torch
+
+    from chip_smoke import click_rows
+    from phantomsdr_tpu_torch.ops import nb as nbm
+    from phantomsdr_tpu_torch.ops.cuda import nb
+
+    c, t = 128, 6480
+    pn = nbm.make_nb_params()
+    order, il = pn.taps, pn.impulse_len
+    lo = order + (il - 1) // 2
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    xs = click_rows(c, t, gen)
+    wb = torch.cat([nbm.init_nb_state(c, pn, "cuda").tail, xs], 1).contiguous()
+    lpcs, cf, cb = nb.lpc_coeffs(wb, t, order, il)
+    temp = nbm.fir_fresh(lpcs, nbm.fir_fresh(lpcs.flip(1), wb[:, lo:lo + t])).contiguous()
+    return wb, temp, lpcs, cf, cb, t, order, il, pn.thresh
+
+
+def nb_raw_calls(lib, case):
+    """Callables that call a library's K-NB launchers (the package's C
+    interfaces) on the case: (run_lpc, run_repair, run_probe) and their
+    outputs ((lpcs, coef_f, coef_b_rev), (wbf, count, positions, thr),
+    probe buffer)."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import nb
+    from phantomsdr_tpu_torch.ops.cuda.build import stream_and_device
+
+    wb, temp, lpcs, cf, cb, t, order, il, thresh = case
+    c, wlen = wb.shape
+    stream, dev = stream_and_device(wb)
+    fl, fr, fp = lib.nb_lpc_launch, lib.nb_repair_launch, lib.nb_repair_chain_probe_launch
+    for fn, kernel, probe in ((fl, nb.LPC_KERNEL, False), (fr, nb.REPAIR_KERNEL, False),
+                              (fp, nb.REPAIR_KERNEL, True)):
+        fn.argtypes = kernel.probe_argtypes if probe else kernel.argtypes
+        fn.restype = ctypes.c_int
+    lout = (torch.empty_like(lpcs), torch.empty_like(cf), torch.empty_like(cb))
+    rout = (torch.empty_like(wb), torch.empty(c, dtype=torch.int32, device="cuda"),
+            torch.empty(c, nb.N_IMPULSE_COUNT, dtype=torch.int32, device="cuda"),
+            torch.empty(c, device="cuda"))
+    pout = wb.clone()
+
+    def checked(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"K-NB {what} failed: {rc}")
+
+    def run_lpc():
+        checked(fl(wb.data_ptr(), *(v.data_ptr() for v in lout), c, wlen, t, order, il,
+                   dev, stream), "nb_lpc_launch")
+
+    def run_repair():
+        checked(fr(wb.data_ptr(), temp.data_ptr(), lpcs.data_ptr(), cf.data_ptr(),
+                   cb.data_ptr(), *(v.data_ptr() for v in rout), c, wlen, t, order, il,
+                   float(np.float32(thresh)), dev, stream), "nb_repair_launch")
+
+    def run_probe():
+        checked(fp(wb.data_ptr(), cf.data_ptr(), cb.data_ptr(), pout.data_ptr(),
+                   temp.data_ptr(), c, wlen, t, order, il, dev, stream),
+                "nb_repair_chain_probe_launch")
+
+    return (run_lpc, run_repair, run_probe), (lout, rout, pout)
+
+
+def package_nb(case):
+    """The package kernels' outputs on the case: ((lpcs, coef_f,
+    coef_b_rev), (wbf, count, positions, thr), probe buffer)."""
+    from phantomsdr_tpu_torch.ops.cuda import nb
+
+    wb, temp, lpcs, cf, cb, t, order, il, thresh = case
+    return (nb.lpc_coeffs(wb, t, order, il),
+            nb.repair(wb, temp, lpcs, cf, cb, thresh, order, il),
+            nb.repair_chain_probe(wb, temp, lpcs, cf, cb, order, il))
+
+
+def phase_table(stamps: np.ndarray, names, per: float = 1.0) -> dict:
+    """Median over the blocks of each named phase's cycles (divided by
+    ``per``), and of the total."""
+    res = {name: float(np.median(stamps[:, k])) / per for k, name in enumerate(names)}
+    res["total"] = float(np.median(stamps[:, 7])) / per
+    return res
+
+
+def anr_phases(src: str, include: Path, tag: str) -> dict:
+    """K-ANR's phase cycles at chip_smoke.py's shape, from an instrumented
+    copy of the source text ``src``; its outputs must equal the package
+    kernel's."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import anr
+
+    design, text, (names,) = stamped(src, ANR_STAMPS, "csrc/anr.cu")
+    lib = build({f"anr_stamped_{tag}": text}, include)[f"anr_stamped_{tag}"]
+    lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    state, x, lms = anr_case()
+    c, t = x.shape
+    blocks = -(-t // lms[-1])
+    run, got = anr_raw_call(lib.anr_launch, state, x, lms)
+    probe, _ = anr_raw_call(lib.anr_chain_probe_launch, state, x, lms)
+    for _ in range(3):
+        run()
+        probe()
+    torch.cuda.synchronize()
+    stamps = np.zeros((ANR_PROBE_SLOT + c, 8), np.int64)
+    lib.read_stamps(stamps.ctypes.data, ANR_PROBE_SLOT + c)
+    new, out = anr.lms_blocks(*state, x, *lms)
+    if not same(got, (*new, out)):
+        raise AssertionError(f"instrumented K-ANR ({tag}) differs from the package kernel")
+    res = {"source": tag, "design": design, "shape": [c, t], "blocks": blocks,
+           "cycles_per_block": phase_table(stamps[:c], ["other"] + names, blocks),
+           "cycles_total": float(np.median(stamps[:c, 7])),
+           "probe_cycles_per_block": phase_table(stamps[ANR_PROBE_SLOT:ANR_PROBE_SLOT + c],
+                                                 ["other"] + names, blocks),
+           "equal_to_package_kernel": True}
+    if design == "ring":
+        # thread 96, the first producer: its cycles a segment
+        segs = -(-t // anr.segment_len(lms[-1]))
+        res["producer_cycles_per_segment"] = phase_table(
+            stamps[1024:1024 + c], ["prologue", "waiting at hand-over", "", "", "",
+                                    "staging + window powers"], segs)
+        res["producer_cycles_per_segment"].pop("")
+    return res
+
+
+def nb_phases(src: str, include: Path, tag: str) -> dict:
+    """K-NB's phase cycles (each launch) at chip_smoke.py's shape, from an
+    instrumented copy of the source text ``src``; its outputs must equal
+    the package kernels'."""
+    import torch
+
+    design, text, (lpc_names, repair_names) = stamped(src, NB_STAMPS, "csrc/nb.cu")
+    lib = build({f"nb_stamped_{tag}": text}, include)[f"nb_stamped_{tag}"]
+    lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    case = nb_case()
+    c = case[0].shape[0]
+    runs, got = nb_raw_calls(lib, case)
+    for _ in range(3):
+        for fn in runs:
+            fn()
+    torch.cuda.synchronize()
+    stamps = np.zeros((NB_PROBE_SLOT + c, 8), np.int64)
+    lib.read_stamps(stamps.ctypes.data, NB_PROBE_SLOT + c)
+    want = package_nb(case)
+    if not (same(got[0], want[0]) and same(got[1], want[1]) and torch.equal(got[2], want[2])):
+        raise AssertionError(f"instrumented K-NB ({tag}) differs from the package kernels")
+    counts = got[1][1]
+    return {"source": tag, "design": design, "shape": list(case[0].shape),
+            "impulses_median": float(counts.float().median()),
+            "lpc_cycles": phase_table(stamps[:c], lpc_names),
+            "repair_cycles": phase_table(stamps[NB_REPAIR_SLOT:NB_REPAIR_SLOT + c],
+                                         repair_names),
+            "probe_cycles": phase_table(stamps[NB_PROBE_SLOT:NB_PROBE_SLOT + c],
+                                        repair_names),
+            "equal_to_package_kernel": True}
+
+
+LINES = ("agc_phases", "pilot_sass", "anr_phases", "nb_phases", "compare",
+         "pilot_depths", "anr_variants", "wf_variants", "host_us")
+
+
 def main() -> int:
     import torch
 
@@ -626,22 +1111,39 @@ def main() -> int:
     )
 
     argv = sys.argv[1:]
-    host_only = "--host-only" in argv
     parent = Path(argv[argv.index("--parent") + 1]) if "--parent" in argv else None
     sass_dir = (Path(argv[argv.index("--sass-dir") + 1]) if "--sass-dir" in argv
                 else BUILD_DIR)
-    if not host_only:
-        sources = [(CSRC, "package")] + ([(parent, "parent")] if parent else [])
-        for where, tag in sources:
-            print(json.dumps({"agc_phases": agc_phases(
-                (where / "agc.cu").read_text(), where, tag)}), flush=True)
-        for where, tag in sources:
-            print(json.dumps({"pilot_sass": pilot_sass(
-                (where / "pilot.cu").read_text(), where, tag, sass_dir)}),
-                flush=True)
-        if parent:
-            print(json.dumps({"compare": compare(parent)}), flush=True)
+    if "--host-only" in argv:
+        only = {"host_us"}
+    elif "--only" in argv:
+        only = set(argv[argv.index("--only") + 1].split(","))
+    else:
+        only = set(LINES)
+    if only - set(LINES):
+        raise SystemExit(f"--only: unknown lines {sorted(only - set(LINES))}; "
+                         f"the lines are {', '.join(LINES)}")
+    sources = [(CSRC, "package")] + ([(parent, "parent")] if parent else [])
+    per_source = {"agc_phases": lambda where, tag: agc_phases(
+                      (where / "agc.cu").read_text(), where, tag),
+                  "pilot_sass": lambda where, tag: pilot_sass(
+                      (where / "pilot.cu").read_text(), where, tag, sass_dir),
+                  "anr_phases": lambda where, tag: anr_phases(
+                      (where / "anr.cu").read_text(), where, tag),
+                  "nb_phases": lambda where, tag: nb_phases(
+                      (where / "nb.cu").read_text(), where, tag)}
+    for line, fn in per_source.items():
+        if line in only:
+            for where, tag in sources:
+                print(json.dumps({line: fn(where, tag)}), flush=True)
+    if parent and "compare" in only:
+        print(json.dumps({"compare": compare(parent)}), flush=True)
+    if "pilot_depths" in only:
         print(json.dumps({"pilot_depths": pilot_depths()}), flush=True)
+    if "anr_variants" in only:
+        print(json.dumps({"anr_variants": anr_variants()}), flush=True)
+    if not only & {"wf_variants", "host_us"}:
+        return 0
 
     state, x, params, _ = agc_case("bench_int16")
     c, n = x.shape
@@ -663,9 +1165,11 @@ def main() -> int:
     rows = torch.arange(0, b, b // 6, dtype=torch.int32, device="cuda")
     wf_kw = dict(fft_result_size=r, base_idx=r // 2 + 1, levels=levels,
                  size_log2=20)
-    if not host_only:
+    if "wf_variants" in only:
         print(json.dumps({"wf_variants": wf_variants(spec, rows, wf_kw, dev,
                                                      stream)}), flush=True)
+    if "host_us" not in only:
+        return 0
     wf_out = waterfall.waterfall_rows(spec, rows, **wf_kw)
     wf_args = (spec.data_ptr(), r, rows.data_ptr(), rows.shape[0], r,
                r // 2 + 1, levels, 20, 6.0206, 6.0206, wf_out.data_ptr(),
