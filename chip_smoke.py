@@ -31,8 +31,11 @@ Phases, one JSON line each (any failure exits non-zero):
              design's loop body: libdevice sinf, the wrap a branch);
              K-NR, K-ANR and K-NB at the shapes of the bench config
              with [input] nr (128 channels x 36 frames x 180 samples),
-             over two calls that carry their state, K-NB's line with
-             the impulses per channel and the threshold margins
+             over two calls that carry their state, K-NR also with every
+             third channel silent from the start, its written-out
+             division and square root against the IEEE ones on 2^32
+             inputs each and its chain floor in cycles a frame, K-NB's line
+             with the impulses per channel and the threshold margins
 4. small     the whole step on the card against the whole step on the
              CPU (plain versions) at a small config; small_wbfm the same
              with stereo + RDS + de-emphasis + Opus decimation; small_nr
@@ -254,6 +257,24 @@ def kernel_ms(fn, reps: int = 10, cold: bool = False) -> float:
 # about 1 ms of device spin at the H100's clock: far longer than the
 # host's work to launch one wrapper call
 SPIN_CYCLES = 2_000_000
+
+
+def sm_cycles_per_ms(reps: int = 5) -> float:
+    """The SM clock of this run: cycles of a device spin
+    (``torch.cuda._sleep``) per millisecond it took, the median of
+    ``reps``."""
+    import torch
+
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return SPIN_CYCLES / float(np.median(times[1:]))
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -971,30 +992,48 @@ def nr_kernel_rows(cfg, gen):
          + 1500 * torch.randn(c, 2 * t, device="cuda", generator=gen))
     win = torch.from_numpy(p.window).to("cuda")
     st = init_nr_state(c, f, "cuda")
-    x_pows = []
-    last = st.last_in
-    for k in range(2):
-        cur, _, xp = frame_spectra(last, win, x[:, k * t:(k + 1) * t], n)
-        x_pows.append(xp)
-        last = cur[-1]
     carries = (st.stage, st.nest, st.xt, st.pslp, st.hk_old)
-    kc = pc = carries
-    nr_err, nr_rel = 0.0, 0.0
-    for k, xp in enumerate(x_pows):
-        kc, kg, kr = nr.gain_frames(kc, p.alpha, p.xih1r, p.pfac, xp)
-        pc, pg, pr = nr.gain_frames_plain(pc, p.alpha, p.xih1r, p.pfac, xp)
-        torch.cuda.synchronize()
-        nr_err = max(nr_err, float((kg - pg).abs().max()))
-        nr_rel = max([nr_rel] + [float(((a - b).abs() / b.abs().clamp(
-            min=1e-30)).max()) for a, b in zip((kg,) + kc[1:],
-                                              (pg,) + pc[1:])])
-        if not (torch.equal(kr, pr) and torch.equal(kc[0], pc[0])):
-            raise AssertionError(f"K-NR vs plain: running flags or stage "
-                                 f"differ after call {k + 1}")
-    if nr_rel > NR_RTOL:
-        raise AssertionError(f"K-NR vs plain: max relative diff {nr_rel} > "
-                             f"{NR_RTOL}")
-    xp = x_pows[1]
+
+    def nr_vs_plain(streams):
+        """Two chained calls of K-NR and of its plain version on the
+        frame powers of ``streams`` from a fresh state: (max |diff| of
+        the gains, max relative diff of gains and carries, the plain
+        version's carries, the last powers)."""
+        x_pows, last = [], st.last_in
+        for k in range(2):
+            cur, _, xp = frame_spectra(last, win, streams[:, k * t:(k + 1) * t], n)
+            x_pows.append(xp)
+            last = cur[-1]
+        kc = pc = carries
+        err, rel = 0.0, 0.0
+        for k, xp in enumerate(x_pows):
+            kc, kg, kr = nr.gain_frames(kc, p.alpha, p.xih1r, p.pfac, xp)
+            pc, pg, pr = nr.gain_frames_plain(pc, p.alpha, p.xih1r, p.pfac, xp)
+            torch.cuda.synchronize()
+            err = max(err, float((kg - pg).abs().max()))
+            rel = max([rel] + [float(((a - b).abs() / b.abs().clamp(
+                min=1e-30)).max()) for a, b in zip((kg,) + kc[1:],
+                                                  (pg,) + pc[1:])])
+            if not (torch.equal(kr, pr) and torch.equal(kc[0], pc[0])):
+                raise AssertionError(f"K-NR vs plain: running flags or stage "
+                                     f"differ after call {k + 1}")
+        if rel > NR_RTOL:
+            raise AssertionError(f"K-NR vs plain: max relative diff {rel} > "
+                                 f"{NR_RTOL}")
+        return err, rel, pc, x_pows[1]
+
+    # the kernel's written-out division, reciprocal and square root
+    # against __fdiv_rn and __fsqrt_rn over 2^32 inputs each
+    ieee = nr.fast_check()
+    if ieee["div"][2] or ieee["sqrt_rcp"][2]:
+        raise AssertionError(f"K-NR: a written-out division or square root "
+                             f"differs from the IEEE one: {ieee}")
+    # every third channel silent from the start (an idle slot: zero
+    # powers, xt_safe 1e-30), beside tone-and-noise channels
+    quiet = x.clone()
+    quiet[::3] = 0.0
+    _, silent_rel, _, _ = nr_vs_plain(quiet)
+    nr_err, nr_rel, pc, xp = nr_vs_plain(x)
 
     def run_nr():
         nr.gain_frames(pc, p.alpha, p.xih1r, p.pfac, xp)
@@ -1002,6 +1041,12 @@ def nr_kernel_rows(cfg, gen):
     b_ms, b_by = bound_ms(2 * n * c * f * 4 + n * c + 2 * (4 * c * f * 4
                                                            + 4 * c),
                           n * c * f * NR_OPS_PER_BIN)
+    # the chain floor's cycles a frame: its probe over 2n frames less its
+    # probe over n, over n frames, at the SM clock of this run
+    floor_ms = kernel_ms(lambda: nr.chain_probe(pc, p.alpha, p.xih1r, p.pfac, xp))
+    xp2 = torch.cat([xp, xp]).contiguous()
+    floor2_ms = kernel_ms(lambda: nr.chain_probe(pc, p.alpha, p.xih1r, p.pfac, xp2))
+    clock = sm_cycles_per_ms()
     rows.append(dict(
         name="K-NR spectral NR frame recursion", route="cuda",
         source="phantomsdr_tpu_torch/csrc/nr.cu",
@@ -1011,18 +1056,23 @@ def nr_kernel_rows(cfg, gen):
         shape=f"x_pow [{n}, {c}, {f}] f32 -> g_run [{n}, {c}, {f}] f32, "
               f"running [{n}, {c}] bool, 5 carries [{c}, {f}]",
         max_abs_err=nr_err, max_rel_err=nr_rel, chained_calls=2,
+        silent_rows_max_rel_err=silent_rel,
+        # (values checked, accepted by the written-out path, differing)
+        ieee_check=ieee,
         tolerance=f"g_run and carries within rtol {NR_RTOL}, running and "
-                  f"stage equal",
+                  f"stage equal (also with every third channel silent "
+                  f"from the start)",
         ms=time_ms(run_nr, 20), kernel_ms=kernel_ms(run_nr),
         device_ms=device_ms(run_nr),
         plain_ms=time_ms(lambda: nr.gain_frames_plain(
             pc, p.alpha, p.xih1r, p.pfac, xp), 3),
-        chain_floor_ms=kernel_ms(lambda: nr.chain_probe(
-            pc, p.alpha, p.xih1r, p.pfac, xp)),
+        chain_floor_ms=floor_ms, chain_floor_2n_frames_ms=floor2_ms,
+        sm_cycles_per_ms=clock,
+        chain_floor_cycles_per_frame=(floor2_ms - floor_ms) * clock / n,
         **profiled(run_nr),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         chain_note=f"{n} dependent frames per (channel, bin)"))
-    del x, x_pows, tt, gate
+    del x, quiet, tt, gate, xp2
 
     # ---- K-ANR, LMS NR at the config's defaults: 25 blocks of 256 and
     # one of 80 a step

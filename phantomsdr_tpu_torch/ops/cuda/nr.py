@@ -10,8 +10,11 @@ overlap-add around it stay batched PyTorch (ops/nr.py).
 Bound on the card: bytes (x_pow in, g_run out, the carries in and out).
 Each bin's recursion is independent of every other bin's, so one thread
 per (channel, bin) walks the step's frames with its five carries in
-registers; ``chain_probe`` runs that loop over a power held in a
-register, without the loads and stores, as the floor.
+registers, its divisions and square root written out branch-free
+(``fast_check`` holds them to the IEEE ones on the card) and a group
+redone with the IEEE ones where a range test fails; ``chain_probe``
+runs that loop over a power held in a register, without the loads and
+stores, as the floor.
 
 ``gain_frames_plain`` is the recursion in plain PyTorch (a Python loop
 over frames, vectorised over channels and bins, in the JAX package's
@@ -19,6 +22,9 @@ operation order); the wrapper takes it only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -44,6 +50,7 @@ KERNEL = CudaKernel("nr", [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
                                     F, F, F, I, P])
 
 
+@functools.lru_cache(maxsize=16)
 def _consts(alpha: float, xih1r: float, pfac: float
             ) -> tuple[float, float, float, float]:
     """alpha, 1 - alpha, xih1r and pfac as the float32 values the
@@ -84,6 +91,14 @@ def _gain_frame(alpha, xih1r, pfac, stage, nest, xt, pslp, hk_old, x_pow):
     return carries, g_run, running[:, 0]
 
 
+def _check_index_range(n: int, c: int, f: int) -> None:
+    """The kernel indexes x_pow and g_run with 32-bit integers, one frame
+    past the last included."""
+    if (n + 1) * c * f >= 1 << 31:
+        raise ValueError(f"gain_frames: x_pow [{n}, {c}, {f}] has too many "
+                         f"elements for the kernel's 32-bit indices")
+
+
 def gain_frames_plain(carries, alpha: float, xih1r: float, pfac: float,
                       x_pow: torch.Tensor):
     """See ``gain_frames``."""
@@ -120,16 +135,20 @@ def gain_frames(carries, alpha: float, xih1r: float, pfac: float,
     if stage.shape[0] != c:
         raise ValueError(f"gain_frames: stage {tuple(stage.shape)} for "
                          f"x_pow {tuple(x_pow.shape)}")
+    _check_index_range(n, c, f)
     g_run = torch.empty_like(x_pow)
-    running = torch.empty((n, c), dtype=torch.bool, device=x_pow.device)
-    out = (torch.empty_like(stage),) + tuple(
-        torch.empty_like(t) for t in (nest, xt, pslp, hk_old))
+    running = x_pow.new_empty((n, c), dtype=torch.bool)
+    # the four float carries out as views of one buffer
+    floats = x_pow.new_empty((4, c, f))
+    stage1 = torch.empty_like(stage)
     stream, dev = stream_and_device(x_pow)
-    KERNEL.launch(x_pow.data_ptr(), *(t.data_ptr() for t in carries),
-                  g_run.data_ptr(), running.data_ptr(),
-                  *(t.data_ptr() for t in out), n, c, f,
+    p = floats.data_ptr()
+    KERNEL.launch(x_pow.data_ptr(), stage.data_ptr(), nest.data_ptr(),
+                  xt.data_ptr(), pslp.data_ptr(), hk_old.data_ptr(),
+                  g_run.data_ptr(), running.data_ptr(), stage1.data_ptr(),
+                  p, p + 4 * c * f, p + 8 * c * f, p + 12 * c * f, n, c, f,
                   *_consts(alpha, xih1r, pfac), dev, stream)
-    return out, g_run, running
+    return (stage1, *floats.unbind()), g_run, running
 
 
 def chain_probe(carries, alpha: float, xih1r: float, pfac: float,
@@ -142,9 +161,29 @@ def chain_probe(carries, alpha: float, xih1r: float, pfac: float,
     require_cuda(x_pow, "x_pow", torch.float32, 3)
     stage, nest, xt, pslp, hk_old = carries
     n, c, f = x_pow.shape
+    _check_index_range(n, c, f)
     out = tuple(torch.empty_like(t) for t in (nest, xt, pslp, hk_old))
     stream, dev = stream_and_device(x_pow)
     KERNEL.probe(x_pow.data_ptr(), *(t.data_ptr() for t in carries),
                  *(t.data_ptr() for t in out), n, c, f,
                  *_consts(alpha, xih1r, pfac), dev, stream)
     return out
+
+
+def fast_check(per: int = 1 << 16, device: int | str = "cuda"
+               ) -> dict[str, tuple[int, int, int]]:
+    """The kernel's written-out division and square root against
+    ``__fdiv_rn`` and ``__fsqrt_rn`` on the card: ``div`` over every pair
+    of exponent fields with ``per`` operand pairs each (edge mantissas,
+    hashed ones, zero numerators); ``sqrt_rcp``, the square root and the
+    reciprocal, over every float32.  Each: (values checked, values the
+    written-out path accepted, accepted values whose bits differ).  CUDA
+    only."""
+    count = torch.zeros(6, dtype=torch.int64, device=device)
+    require_cuda(count, "count", torch.int64, 1)
+    stream, dev = stream_and_device(count)
+    fn = KERNEL.lib().nr_fast_check_launch
+    fn.argtypes, fn.restype = [P, ctypes.c_uint, I, P], I
+    KERNEL.call("nr_fast_check_launch", count.data_ptr(), per, dev, stream)
+    c = count.tolist()
+    return {"div": tuple(c[:3]), "sqrt_rcp": tuple(c[3:])}

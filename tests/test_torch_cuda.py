@@ -461,10 +461,12 @@ def test_fir_on_the_card_is_full_float32(dev):
 
 # ------------------------------------------------------ noise processors
 
-def nr_inputs(c, f, n, dev, seed):
+def nr_inputs(c, f, n, dev, seed, quiet=None):
     """Powers (exponential, with bursts and zero bins) and carries for
     K-NR, channels at every stage of the startup: fresh, accumulating,
-    the 20th frame, running."""
+    the 20th frame, running.  ``quiet``: every third channel is an idle
+    slot from a reset (stage and carries 0) whose powers are 0
+    ("silent") or subnormal ("subnormal"): xt_safe is then 1e-30."""
     g = torch.Generator(device=dev).manual_seed(seed)
     # exponential powers: -log of a uniform in (0, 1], never inf
     x_pow = ((1 - torch.rand(n, c, f, device=dev, generator=g)).log().neg()
@@ -476,16 +478,26 @@ def nr_inputs(c, f, n, dev, seed):
     carries = (stage,) + tuple(
         torch.rand(c, f, device=dev, generator=g) * s
         for s in (1e6, 1e6, 0.5, 3.0))
+    if quiet:
+        x_pow[:, ::3] = 0.0 if quiet == "silent" else (
+            1e-40 * torch.rand(n, len(range(0, c, 3)), f, device=dev, generator=g))
+        for t in carries:
+            t[::3] = 0
     return x_pow.contiguous(), carries
 
 
-@pytest.mark.parametrize("c,f,n", [(128, 180, 36), (5, 257, 7),
-                                   (3, 5034, 8), (1, 1, 25)])
-def test_nr_kernel_matches_plain(dev, c, f, n):
+NR_CASES = [(128, 180, 36, None), (5, 257, 7, None), (3, 5034, 8, None),
+            (1, 1, 25, None), (128, 180, 36, "silent"),
+            (128, 180, 36, "subnormal"), (5, 257, 7, "silent"),
+            (40, 33, 9, "subnormal")]
+
+
+@pytest.mark.parametrize("c,f,n,quiet", NR_CASES)
+def test_nr_kernel_matches_plain(dev, c, f, n, quiet):
     """Over two calls that carry the state: the gains and float carries
     within rtol 1e-5 (the same float32 operations in the same order;
     expf may round otherwise), stage and running flags equal."""
-    x_pow, carries = nr_inputs(c, f, 2 * n, dev, c * f)
+    x_pow, carries = nr_inputs(c, f, 2 * n, dev, c * f, quiet)
     p = make_nr_params(max(f, 2))
     kc = pc = carries
     for k in range(2):
@@ -498,6 +510,47 @@ def test_nr_kernel_matches_plain(dev, c, f, n):
         torch.testing.assert_close(kg, pg, rtol=1e-5, atol=0)
         for a, b in zip(kc[1:], pc[1:]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("c,f,n,quiet", NR_CASES)
+def test_nr_kernel_equals_parent(dev, c, f, n, quiet):
+    """The kernel keeps every float32 operation of the parent's design
+    in its order, its written-out divisions and square root rounding as
+    __fdiv_rn and __fsqrt_rn do: over two chained calls, gains, running
+    flags and carries equal to the parent kernel's bit for bit."""
+    from phantomsdr_tpu_torch.ops.cuda.build import P, stream_and_device
+
+    fn = parent_lib(dev, "nr").nr_launch
+    fn.argtypes = nr.KERNEL.argtypes
+    x_pow, kc = nr_inputs(c, f, 2 * n, dev, c * f + 1, quiet)
+    p = make_nr_params(max(f, 2))
+    for k in range(2):
+        xp = x_pow[k * n:(k + 1) * n].contiguous()
+        pg, pr = torch.empty_like(xp), torch.empty((n, c), dtype=torch.bool, device=dev)
+        pc = tuple(torch.empty_like(t) for t in kc)
+        stream, d = stream_and_device(xp)
+        assert fn(*(P(t.data_ptr()) for t in (xp, *kc, pg, pr, *pc)), n, c, f,
+                  *nr._consts(p.alpha, p.xih1r, p.pfac), d, P(stream)) == 0
+        kc, kg, kr = nr.gain_frames(kc, p.alpha, p.xih1r, p.pfac, xp)
+        torch.cuda.synchronize()
+        assert torch.equal(kg, pg) and torch.equal(kr, pr)
+        for a, b in zip(kc, pc):
+            assert torch.equal(a, b)
+
+
+def test_nr_fast_divisions_and_sqrt_equal_ieee(dev):
+    """The kernel's written-out division, reciprocal and square root give
+    __fdiv_rn's and __fsqrt_rn's bits on every input they accept: the
+    division over every pair of exponent fields (65,536 operand pairs
+    each: the edge mantissas 0, 1, 2^23 - 2 and 2^23 - 1 of both
+    operands, zero numerators, hashed mantissas and signs), the square
+    root and the reciprocal over every float32."""
+    got = nr.fast_check(1 << 16)
+    checked, fast, differ = got["div"]
+    assert checked == 1 << 32 and differ == 0
+    assert fast > checked // 4          # the accepted range is most of it
+    checked, fast, differ = got["sqrt_rcp"]
+    assert checked == 1 << 32 and differ == 0 and fast > 0
 
 
 def test_nr_chain_probe_runs_the_kernels_loop(dev):

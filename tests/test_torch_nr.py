@@ -138,6 +138,58 @@ def test_gain_frames_match_jax_scan(stages):
                                    rtol=1e-5, err_msg=name)
 
 
+# the kinds of rows edge_inputs makes: powers of noise, silence (exact
+# zeros: the 1e-30 guards alone keep the divisions finite), subnormal
+# powers (xt_safe is 1e-30) and huge ones (exp underflows to 0, the
+# a-posteriori SNR clamps at 1000)
+ROW_KINDS = ("noise", "silent", "subnormal", "huge")
+
+
+def edge_inputs(f, n, seed):
+    """x_pow [n, C, f] and carries for 22 * 4 channels: every starting
+    stage 0-21 with each row kind (channel c has stage c % 22 and kind
+    ROW_KINDS[c // 22])."""
+    rng = np.random.default_rng(seed)
+    c = 22 * len(ROW_KINDS)
+    expo = rng.exponential(1.0, (n, c, f))
+    scale = np.repeat([1e6, 0.0, 1e-40, 1e35], 22)[None, :, None]
+    x_pow = (expo * scale).astype(np.float32)
+    stages = (np.arange(c) % 22).astype(np.int32)
+    carries = [np.abs(rng.standard_normal((c, f))).astype(np.float32) * s
+               for s in (1e6, 1e6, 0.5, 3.0)]
+    return x_pow, stages, carries
+
+
+@pytest.mark.parametrize("f,n", [(1, 40), (33, 1), (33, 40), (257, 40)])
+def test_gain_frames_match_jax_scan_at_the_kernels_edges(f, n):
+    """The plain version against JAX's frame scan where the kernel's
+    tiling and range tests have their edges: bins a channel that leave
+    warps straddling channels (1, 33, 257), one frame and more frames
+    than any register ring holds, every starting stage, and silent,
+    subnormal and huge powers.  Gains within rtol 1e-5; the carries too,
+    with an absolute floor of the smallest normal float32 (XLA on the CPU
+    flushes subnormal results to zero, PyTorch and the card keep them)."""
+    x_pow, stages, carries = edge_inputs(f, n, f * 100 + n)
+    c = stages.shape[0]
+    jst = jnr.init_nr_state(c, f)._replace(
+        stage=jnp.asarray(stages),
+        **{k: jnp.asarray(v) for k, v in zip(("nest", "xt", "pslp",
+                                               "hk_old"), carries)})
+    jp = jnr.make_nr_params(max(f, 2))
+    jst, (jg, jrun) = jax_gain_scan(jst, jp, x_pow)
+    tcar, tg, trun = knr.gain_frames(
+        (torch.from_numpy(stages), *(torch.from_numpy(v) for v in carries)),
+        jp.alpha, jp.xih1r, jp.pfac, torch.from_numpy(x_pow))
+    tiny = float(np.finfo(np.float32).tiny)
+    np.testing.assert_array_equal(trun.numpy(), np.asarray(jrun))
+    np.testing.assert_array_equal(tcar[0].numpy(), np.asarray(jst.stage))
+    assert np.isfinite(tg.numpy()).all()
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-5)
+    for name, got in zip(("nest", "xt", "pslp", "hk_old"), tcar[1:]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(jst, name)),
+                                   rtol=1e-5, atol=tiny, err_msg=name)
+
+
 def test_smooth_gains_matches_jax():
     rng = np.random.default_rng(7)
     g = rng.uniform(0.001, 1.0, (6, C, F)).astype(np.float32)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where K-AGC's, K-PILOT's, K-WF's, K-ANR's and K-NB's time goes on the
-card, at chip_smoke.py's shapes.
+"""Where K-AGC's, K-PILOT's, K-WF's, K-NR's, K-ANR's and K-NB's time goes
+on the card, at chip_smoke.py's shapes.
 
     python3 tools/torch_kernel_breakdown.py [--host-only | --only LINES]
         [--parent CSRC_DIR] [--sass-dir DIR]
@@ -36,6 +36,24 @@ Prints one JSON line each:
   integer and went to log2f, and of those the ones where lg2.approx
   alone would have given another int8 (``differ_at_edge``), and
   elsewhere (``differ_elsewhere``, which must be 0).
+- ``nr_phases``: K-NR's cycles a frame by part at [36, 128, 180] (lane
+  0 of each warp, median over the warps), from an instrumented copy of
+  csrc/nr.cu whose outputs must equal the package kernel's: the
+  ``groups`` design's load wait, xt head, hk tail, range test + vote +
+  exact redo, and stores (each part waited for before the next stamp, so
+  the parts run one after the other there); the first ``frame``
+  design's load wait, frame and stores; the share of warp-frames redone on
+  the exact path; and the cycles a frame of a copy stamped only at the
+  loop's ends.  On the bench case and with every third channel silent
+  from a fresh state; and the latter copy's cycles a frame for one warp
+  alone on the card, with a timing-only copy without the hk tails (its
+  gains wrong) beside it: what the xt chain alone costs.
+- ``nr_shapes``: K-NR's kernel ms and chain floor at that shape in copies
+  of csrc/nr.cu with other threads a block and frames a group; each
+  copy's outputs must equal the package kernel's.
+- ``issue_rates``: cycles a warp-instruction of FFMA, FMNMX, FMNMX.NAN
+  and an FSETP + FSEL pair takes its scheduler (8 independent chains a
+  thread, 2 warps a scheduler): what K-NR's loop costs by instruction.
 - ``anr_phases``: K-ANR's cycles a block by phase (thread 0's clock64
   between stamps that sit after block barriers, median over the 128
   channels of [128, 6480], LMS NR at taps 64, delay 8, blocks of 256),
@@ -60,17 +78,22 @@ Prints one JSON line each:
   and of its parts, each call made on an idle card (the time in which a
   lone call leaves the card waiting), and ``events_only_ms``:
   chip_smoke.py's one-call timing of an empty function, the timing's own
-  cost.  ``waterfall_rows`` is K-WF's wrapper at its bench shape.
+  cost.  ``waterfall_rows`` is K-WF's wrapper at its bench shape,
+  ``gain_frames`` K-NR's at [36, 128, 180] (with ``--parent``, beside
+  the parent checkout's wrapper in turns); ``nr_launches_per_call``
+  counts the kernels the spectral NR stages around K-NR launch a call
+  (frame_spectra, its |z|^2, smooth_gains).
 
 ``--parent CSRC_DIR`` (the ``phantomsdr_tpu_torch/csrc`` of another
 checkout, e.g. unpacked with ``git archive`` into build/archive/) adds
-that checkout's K-AGC, K-PILOT, K-ANR and K-NB beside the package's:
-its ``agc_phases``, ``pilot_sass``, ``anr_phases`` and ``nb_phases``,
-and a ``compare`` line that holds its outputs equal to the package
-kernels' bit for bit on the same inputs and times both in turns
-(parent, package, package, parent: kernel_ms, the device work of one
-call) with their chain probes.  The parent's C interfaces must be the
-package's.
+that checkout's K-AGC, K-PILOT, K-NR, K-ANR and K-NB beside the
+package's: its ``agc_phases``, ``pilot_sass``, ``nr_phases``,
+``anr_phases`` and ``nb_phases``, and a ``compare`` line that holds its
+outputs equal to the package kernels' bit for bit on the same inputs
+(K-NR also at the card tests' edge shapes and with silent and subnormal
+channels) and times both in turns (parent, package, package, parent:
+kernel_ms, the device work of one call) with their chain probes.  The
+parent's C interfaces must be the package's.
 
 ``--only LINES`` (comma-separated names of the lines above) prints only
 those.  ``--host-only`` prints only ``host_us``: copied into another
@@ -198,6 +221,45 @@ def build(sources: dict[str, str], include: Path | None = None,
 
 
 PTXAS: dict[str, str] = {}
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernels that one fn() call launches (torch.profiler's records;
+    for PyTorch's own kernels, which it keeps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(ev.count for ev in prof.key_averages() if ev.device_time_total > 0))
+
+
+def nr_fusion_launches() -> dict:
+    """Launches a call of the spectral NR step's stages around K-NR at
+    [36, 128, 180]: frame_spectra, its |z|^2 alone, smooth_gains (the
+    fusions queued beside K-NR)."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.nr import frame_spectra, smooth_gains
+
+    carries, p, xp, _, _ = nr_case()
+    n, c, f = xp.shape
+    x = torch.randn(c, n * f, device="cuda")
+    win = torch.from_numpy(p.window).to("cuda")
+    _, z, _ = frame_spectra(carries[1], win, x, n)
+    g = torch.rand_like(xp)
+    running = torch.ones(n, c, dtype=torch.bool, device="cuda")
+
+    def abs2():
+        zf = z[..., :f]
+        return (zf.real ** 2 + zf.imag ** 2).contiguous()
+
+    return {"frame_spectra": kernel_launches(lambda: frame_spectra(carries[1], win, x, n)),
+            "x_pow_abs2": kernel_launches(abs2),
+            "smooth_gains": kernel_launches(lambda: smooth_gains(g, xp, running))}
 
 
 def host_us(fn, calls: int = 50) -> float:
@@ -510,7 +572,7 @@ def pilot_case():
 
 
 def compare(parent: Path) -> dict:
-    """The parent's K-AGC, K-PILOT, K-ANR and K-NB against the package's
+    """The parent's K-AGC, K-PILOT, K-NR, K-ANR and K-NB against the package's
     on the same inputs (equal bit for bit), and both timed in turns."""
     import torch
 
@@ -519,8 +581,9 @@ def compare(parent: Path) -> dict:
     from phantomsdr_tpu_torch.ops.cuda.build import stream_and_device
 
     libs = build({f"parent_{name}": (parent / f"{name}.cu").read_text()
-                  for name in ("agc", "pilot", "anr", "nb")}, parent)
-    res = {"anr": compare_anr(libs["parent_anr"]), "nb": compare_nb(libs["parent_nb"])}
+                  for name in ("agc", "pilot", "anr", "nb", "nr")}, parent)
+    res = {"nr": compare_nr(libs["parent_nr"]), "anr": compare_anr(libs["parent_anr"]),
+           "nb": compare_nb(libs["parent_nb"])}
     for case in ("bench_int16", "wbfm_float"):
         state, x, params, fm = agc_case(case)
         run_parent, got = agc_call(agc_launcher(libs["parent_agc"], fm), state,
@@ -874,15 +937,19 @@ NB_STAMPS = {
 }
 
 
-def stamped(src: str, designs: dict, what: str) -> tuple[str, str, tuple]:
+def stamped(src: str, designs: dict, what: str, macros: str = NOISE_MACROS
+            ) -> tuple[str, str, tuple]:
     """The source with the stamps of the design whose anchors it holds:
-    (design, instrumented source, phase names)."""
+    (design, instrumented source, phase names).  An anchor's third item
+    says where its text goes: before it (True), after it (False), or in
+    its place ("replace")."""
     for design, spec in designs.items():
         anchors = spec[-1]
         if all(src.count(a) == 1 for a, _, _ in anchors):
             for anchor, text, before in anchors:
-                src = src.replace(anchor, text + anchor if before else anchor + text)
-            src = src.replace("namespace {\n", NOISE_MACROS + "namespace {\n", 1)
+                src = src.replace(anchor, text if before == "replace"
+                                  else text + anchor if before else anchor + text)
+            src = src.replace("namespace {\n", macros + "namespace {\n", 1)
             return design, src + NOISE_READ, spec[:-1]
     raise RuntimeError(f"{what}: no stamp design matches the source")
 
@@ -1095,8 +1162,410 @@ def nb_phases(src: str, include: Path, tag: str) -> dict:
             "equal_to_package_kernel": True}
 
 
-LINES = ("agc_phases", "pilot_sass", "anr_phases", "nb_phases", "compare",
-         "pilot_depths", "anr_variants", "wf_variants", "host_us")
+# K-NR's stamps.  Each warp's lane 0 adds the clock64 cycles between its
+# stamps into the phase the stamp names, over the whole call, and stores
+# them at slot ``off`` + the warp (8 values a slot, the 8th the total).
+# DEP(v) folds v into a register (slot 6, no phase), so that the next
+# stamp waits for v (an instruction issues only when its operands are
+# ready): each phase then ends when its values exist, and the stamped copy runs its parts
+# one after the other.  With NR_TOTAL_ONLY the copy keeps the first and
+# the last stamp alone (the loop's cycles, unperturbed).  g_nr_frames
+# counts the warp-frames run (index 1) and those redone on the exact
+# path (index 0).
+NR_MACROS = r"""
+__device__ long long g_stamps[8 * 8192];
+__device__ unsigned long long g_nr_frames[4];
+#define STAMP_INIT const long long stamp0_ = clock64(); long long ph_[7] = {0, 0, 0, 0, 0, 0, 0}; long long tp_ = stamp0_;
+#ifdef NR_TOTAL_ONLY
+#define PH(k) {}
+#define DEP(v) {}
+#else
+#define PH(k) { const long long tn_ = clock64(); ph_[k] += tn_ - tp_; tp_ = tn_; }
+#define DEP(v) { ph_[6] ^= __float_as_uint(v); }
+#endif
+#define NR_COUNT(k, n) if ((threadIdx.x & 31) == 0) atomicAdd(&g_nr_frames[k], static_cast<unsigned long long>(n));
+#define NR_END(off) if ((threadIdx.x & 31) == 0) { long long* st_ = g_stamps + 8 * ((off) + (blockIdx.x * blockDim.x + threadIdx.x) / 32); for (int k_ = 0; k_ < 7; ++k_) st_[k_] = ph_[k_]; st_[7] = clock64() - stamp0_; }
+"""
+NR_READ = """
+extern "C" int read_nr_frames(unsigned long long* host) {
+    return static_cast<int>(cudaMemcpyFromSymbol(host, g_nr_frames, sizeof(g_nr_frames)));
+}
+extern "C" int reset_nr_frames() {
+    const unsigned long long zero[4] = {0, 0, 0, 0};
+    return static_cast<int>(cudaMemcpyToSymbol(g_nr_frames, zero, sizeof(zero)));
+}
+"""
+NR_STAMPS = {
+    # the first design: one frame at a time, its divisions and square root
+    # branching to their slow paths
+    "frame": (["load wait", "frame", "stores"], [
+        ("    int stage = stage0[c];\n    Carry s{nest0[idx], xt0[idx], pslp0[idx], hk0[idx]};\n",
+         "    STAMP_INIT\n", False),
+        ("        g_run[at] = frame(k, stage, s, x_pow[at], running);\n",
+         "        const float xv_ = x_pow[at]; DEP(xv_) PH(0)\n"
+         "        const float gv_ = frame(k, stage, s, xv_, running); DEP(gv_) DEP(s.xt) PH(1)\n"
+         "        NR_COUNT(1, 1)\n        g_run[at] = gv_;\n", "replace"),
+        ("        if (lead) running_out[static_cast<long long>(i) * channels + c] = running;\n",
+         "        PH(2)\n", False),
+        ("    if (lead) stage1[c] = stage;\n", "    NR_END(0)\n", True),
+    ]),
+    # groups of kGroup frames, each frame's tail stages between the next
+    # frame's head stages; in the stamped copy each stage waits for its
+    # inputs before the next stamp, so the parts run one after the other
+    "groups": (["load wait", "xt head", "hk tail", "range test + vote + exact redo",
+                "stores"], [
+        ("    issue(0);\n    issue(1);\n", "    STAMP_INIT\n", False),
+        ("bool (&run)[kGroup], int first", ", long long* ph_, long long& tp_", False),
+        ("frames<kGroup, true>(k, s, xq, g, run, 0", ", ph_, tp_", False),
+        ("frames<kGroup, false>(k, s, xq, g, run, 0", ", ph_, tp_", False),
+        ("frames<1, false>(k, s, xq, g, run, j", ", ph_, tp_", False),
+        ("        fetch(q);\n", "#pragma unroll\n        for (int j = 0; j < kGroup; ++j) DEP(xq[j])\n"
+         "        PH(0)\n", False),
+        ("    Frame f[kN];\n", "    NR_COUNT(1, kN)\n", False),
+        ("    h2<true, kSteady>(k, s, f[0]);\n", "    DEP(f[0].snr_post) PH(1)\n", False),
+        ("        h1<true, kSteady>(k, s, f[j]);\n", "        DEP(f[j].e) PH(1)\n", False),
+        ("        t2<true>(f[j - 1]);\n", "        DEP(f[j - 1].w) PH(2)\n", False),
+        ("        h2<true, kSteady>(k, s, f[j]);\n", "        DEP(f[j].snr_post) PH(1)\n", False),
+        ("        g[first + j - 1] = t3<true, kSteady>(s, f[j - 1]);\n", "        DEP(s.hk) PH(2)\n",
+         False),
+        ("    g[first + kN - 1] = t3<true, kSteady>(s, f[kN - 1]);\n", "    DEP(s.hk) PH(2)\n",
+         False),
+        ("    if (__any_sync(kFull, !ok)) {\n        s = saved;\n", "        NR_COUNT(0, kN)\n",
+         False),
+        ("    for (int j = 0; j < kN; ++j) run[first + j] = f[j].running;\n",
+         "    DEP(s.hk) DEP(s.xt) PH(3)\n", False),
+        ("        for (int j = 0; j < kGroup; ++j) store(j);\n", "        PH(4)\n", False),
+        ("            store(j);\n        }\n", "            PH(4)\n", False),
+        ("    if (!live) return;\n    if (lead && !kProbe) stage1[chan] = s.stage;\n",
+         "    NR_END(kProbe ? 4096 : 0)\n", True),
+    ]),
+}
+
+
+def nr_case(silent_every: int = 0, seed: int = 19):
+    """K-NR at chip_smoke.py's shape: the frame powers [36, 128, 180] of
+    two steps of tone-and-noise streams (an AM-like tone on every other
+    channel from 0.3 s), from a fresh state: (carries after the first
+    step, params, the second step's powers, the first step's powers, the
+    fresh carries).  ``silent_every``: every such channel carries zeros
+    (an idle slot of the server) from the start."""
+    import math
+
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import nr
+    from phantomsdr_tpu_torch.ops.nr import frame_spectra, init_nr_state, make_nr_params
+
+    c, n, f = 128, 36, 180
+    t = n * f
+    p = make_nr_params(f)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tt = torch.arange(2 * t, device="cuda") / 12000.0
+    gate = (torch.arange(c, device="cuda")[:, None] % 2) * (tt > 0.3)
+    x = (6000 * torch.sin(2 * math.pi * 700 * tt)[None] * gate
+         + 1500 * torch.randn(c, 2 * t, device="cuda", generator=gen))
+    if silent_every:
+        x[::silent_every] = 0.0
+    win = torch.from_numpy(p.window).to("cuda")
+    st = init_nr_state(c, f, "cuda")
+    cur, _, xp0 = frame_spectra(st.last_in, win, x[:, :t], n)
+    _, _, xp1 = frame_spectra(cur[-1], win, x[:, t:], n)
+    fresh = (st.stage, st.nest, st.xt, st.pslp, st.hk_old)
+    carries, _, _ = nr.gain_frames(fresh, p.alpha, p.xih1r, p.pfac, xp0)
+    return carries, p, xp1.contiguous(), xp0.contiguous(), fresh
+
+
+def nr_raw_call(fn, carries, p, xp, probe: bool = False):
+    """A callable that calls K-NR's ctypes launcher ``fn`` (the package's
+    C interface; ``probe``: the chain probe's) on the case, and its
+    outputs (stage, nest, xt, pslp, hk_old, g_run, running; the probe's:
+    nest, xt, pslp, hk_old)."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import nr
+    from phantomsdr_tpu_torch.ops.cuda.build import stream_and_device
+
+    n, c, f = xp.shape
+    stream, dev = stream_and_device(xp)
+    fn.argtypes = nr.KERNEL.probe_argtypes if probe else nr.KERNEL.argtypes
+    fn.restype = ctypes.c_int
+    floats = tuple(torch.empty_like(t) for t in carries[1:])
+    if probe:
+        outs = floats
+        args = (xp.data_ptr(), *(t.data_ptr() for t in carries),
+                *(t.data_ptr() for t in floats), n, c, f,
+                *nr._consts(p.alpha, p.xih1r, p.pfac), dev, stream)
+    else:
+        outs = (torch.empty_like(carries[0]), *floats, torch.empty_like(xp),
+                torch.empty((n, c), dtype=torch.bool, device="cuda"))
+        args = (xp.data_ptr(), *(t.data_ptr() for t in carries), outs[5].data_ptr(),
+                outs[6].data_ptr(), outs[0].data_ptr(), *(t.data_ptr() for t in floats),
+                n, c, f, *nr._consts(p.alpha, p.xih1r, p.pfac), dev, stream)
+
+    def run():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"K-NR launch failed: {rc}")
+
+    return run, outs
+
+
+def package_nr(carries, p, xp):
+    """The package kernel's (stage, nest, xt, pslp, hk_old, g_run,
+    running) on the case."""
+    from phantomsdr_tpu_torch.ops.cuda import nr
+
+    new, g, run = nr.gain_frames(carries, p.alpha, p.xih1r, p.pfac, xp)
+    return (*new, g, run)
+
+
+def nr_edge_cases():
+    """(name, carries, params, [powers of two chained calls]) at the
+    shapes the card tests use (F 1, 257 and 5034, frames 7 to 25) and at
+    the bench shape with silent, subnormal and zero-power channels from a
+    fresh state."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.nr import make_nr_params
+
+    cases = []
+    for c, f, n in ((5, 257, 7), (3, 5034, 8), (1, 1, 25), (40, 33, 9)):
+        g = torch.Generator(device="cuda").manual_seed(c * f + n)
+        x_pow = (1 - torch.rand(2 * n, c, f, device="cuda", generator=g)).log().neg() * 1e6
+        x_pow[:, :, 0] = 0.0
+        stage = (torch.arange(c, device="cuda", dtype=torch.int32) * 7) % 22
+        carries = (stage,) + tuple(torch.rand(c, f, device="cuda", generator=g) * s
+                                   for s in (1e6, 1e6, 0.5, 3.0))
+        cases.append((f"{c}x{f}x{n}", carries, make_nr_params(max(f, 2)),
+                      [x_pow[:n].contiguous(), x_pow[n:].contiguous()]))
+    _, p, xp1, xp0, fresh = nr_case(silent_every=3)
+    sub = xp0.clone()
+    sub[:, 1::3] = 1e-40 * (1 + torch.arange(180, device="cuda"))
+    cases.append(("bench_silent_rows", fresh, p, [xp0, xp1]))
+    cases.append(("bench_subnormal_rows", fresh, p, [sub, xp1]))
+    return cases
+
+
+def compare_nr(lib) -> dict:
+    """The parent's K-NR against the package's over two calls that carry
+    the state, at the bench shape and at nr_edge_cases (every output equal
+    bit for bit), then both and their chain probes timed in turns at the
+    bench shape."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import nr
+
+    carries, p, xp, _, _ = nr_case()
+    cases = [("bench", carries, p, [xp, xp.flip(0).contiguous()])] + nr_edge_cases()
+    for name, car, pp, xps in cases:
+        for k, x in enumerate(xps):
+            run, got = nr_raw_call(lib.nr_launch, car, pp, x)
+            run()
+            want = package_nr(car, pp, x)
+            torch.cuda.synchronize()
+            if not same(got, want):
+                raise AssertionError(f"K-NR {name} call {k + 1}: the parent's output differs")
+            car = want[:5]
+    run_parent, _ = nr_raw_call(lib.nr_launch, carries, p, xp)
+    probe_parent, _ = nr_raw_call(lib.nr_chain_probe_launch, carries, p, xp, probe=True)
+    parent_ms, package_ms = in_turns(run_parent, lambda: nr.gain_frames(
+        carries, p.alpha, p.xih1r, p.pfac, xp))
+    parent_floor, floor = in_turns(probe_parent, lambda: nr.chain_probe(
+        carries, p.alpha, p.xih1r, p.pfac, xp))
+    return {"shape": list(xp.shape), "equal_bit_for_bit": True, "chained_calls": 2,
+            "cases": [c[0] for c in cases],
+            "parent_kernel_ms": parent_ms, "kernel_ms": package_ms,
+            "parent_chain_floor_ms": parent_floor, "chain_floor_ms": floor}
+
+
+def nr_phases(src: str, include: Path, tag: str) -> dict:
+    """K-NR's cycles a frame by part at chip_smoke.py's shape (median over
+    the warps of their lane 0), and the share of warp-frames the exact
+    path ran, from an instrumented copy of the source text ``src`` (and a
+    copy stamped only at the loop's ends: ``cycles_per_frame_unstamped``);
+    on the bench case and on it with every third channel silent from a
+    fresh state.  Outputs must equal the package kernel's."""
+    import torch
+
+    design, text, (names,) = stamped(src, NR_STAMPS, "csrc/nr.cu", NR_MACROS)
+    text += NR_READ
+    copies = {f"nr_stamped_{tag}": text, f"nr_total_{tag}": "#define NR_TOTAL_ONLY\n" + text}
+    if design == "groups":
+        # timing only (its gains are the snr_post): the xt head chains
+        # without the hk tails
+        head = "#define NR_TOTAL_ONLY\n" + text
+        for old_, new_ in NR_HEAD_ONLY:
+            if head.count(old_) != 1:
+                raise RuntimeError("csrc/nr.cu changed: its tail stages")
+            head = head.replace(old_, new_)
+        copies[f"nr_head_{tag}"] = head
+    libs = build(copies, include)
+    res = {"source": tag, "design": design}
+    carries, p, xp, _, _ = nr_case()
+    _, ps, xs1, xs0, fresh = nr_case(silent_every=3)
+    for case, car, pp, x in (("bench", carries, p, xp), ("silent_rows", fresh, ps, xs0)):
+        n, c, f = x.shape
+        kinds = {"thread": slice(None)}
+        warps = -(-c * f // 32) * len(kinds)
+        out = {}
+        for which, lib in (("stamped", libs[f"nr_stamped_{tag}"]),
+                           ("unstamped", libs[f"nr_total_{tag}"])):
+            lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            lib.read_nr_frames.argtypes = [ctypes.c_void_p]
+            run, got = nr_raw_call(lib.nr_launch, car, pp, x)
+            run()
+            want = package_nr(car, pp, x)
+            torch.cuda.synchronize()
+            if not same(got, want):
+                names_ = ("stage", "nest", "xt", "pslp", "hk_old", "g_run", "running")
+                raise AssertionError(
+                    f"instrumented K-NR ({tag}, {case}, {which}) differs from the package "
+                    f"kernel: {[(nm, int((a != b).sum())) for nm, a, b in zip(names_, got, want)]}")
+            assert lib.reset_nr_frames() == 0
+            run()
+            torch.cuda.synchronize()
+            stamps = np.zeros((warps, 8), np.int64)
+            lib.read_stamps(stamps.ctypes.data, warps)
+            counts = np.zeros(4, np.uint64)
+            lib.read_nr_frames(counts.ctypes.data)
+            for kind, rows in kinds.items():
+                if which == "stamped":
+                    out[f"{kind}_cycles_per_frame"] = phase_table(stamps[rows], names, n)
+                else:
+                    out[f"{kind}_cycles_per_frame_unstamped"] = float(
+                        np.median(stamps[rows, 7])) / n
+                    out[f"{kind}_cycles_per_frame_unstamped_max"] = float(
+                        stamps[rows, 7].max()) / n
+            if which == "stamped":
+                out["exact_share_of_warp_frames"] = [
+                    float(counts[k]) / float(counts[k + 1]) if counts[k + 1] else 0.0
+                    for k in range(0, 2 * len(kinds), 2)]
+        res[case] = {"shape": [n, c, f], **out}
+    # one warp alone on the card (32 bins of running channels): the loop's
+    # latency without other warps on its scheduler (and the xt heads'
+    # alone, for the groups design)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x1 = ((1 - torch.rand(36, 1, 32, device="cuda", generator=g)).log().neg() * 1e6).contiguous()
+    car1 = (torch.full((1,), 21, dtype=torch.int32, device="cuda"),) + tuple(
+        torch.rand(1, 32, device="cuda", generator=g) * s for s in (1e6, 1e6, 0.5, 3.0))
+    for key, name in (("one_warp_alone", f"nr_total_{tag}"),
+                      ("one_warp_alone_xt_heads_only", f"nr_head_{tag}")):
+        if name not in libs:
+            continue
+        lib = libs[name]
+        lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        run, _ = nr_raw_call(lib.nr_launch, car1, p, x1)
+        run()
+        torch.cuda.synchronize()
+        one = np.zeros((1, 8), np.int64)
+        lib.read_stamps(one.ctypes.data, 1)
+        res[f"{key}_cycles_per_frame_unstamped"] = float(one[0, 7]) / 36
+    res["equal_to_package_kernel"] = True
+    return res
+
+
+# the groups design's fast tail stages, and what replaces them in the
+# timing-only copy of nr_phases (the snr_post for the gains)
+NR_HEAD_ONLY = (
+    ("        t1<true, kSteady>(k, s, f[j - 1]);\n        t2<true>(f[j - 1]);\n", ""),
+    ("        g[first + j - 1] = t3<true, kSteady>(s, f[j - 1]);\n",
+     "        g[first + j - 1] = f[j - 1].snr_post;\n"),
+    ("    t1<true, kSteady>(k, s, f[kN - 1]);\n    t2<true>(f[kN - 1]);\n"
+     "    g[first + kN - 1] = t3<true, kSteady>(s, f[kN - 1]);\n",
+     "    g[first + kN - 1] = f[kN - 1].snr_post;\n"),
+)
+NR_SHAPE = ("constexpr int kThreads = 32;", "constexpr int kGroup = 4;")
+# (threads a block, frames a group) of each copy
+NR_SHAPES = ((32, 4), (64, 4), (96, 4), (128, 4), (32, 2), (32, 3), (32, 6), (32, 8))
+
+
+def nr_shapes() -> dict:
+    """K-NR's kernel ms and chain floor at chip_smoke.py's shape in copies
+    of csrc/nr.cu with other threads a block and frames a group (a basic
+    block and a vote); each copy's outputs must equal the package
+    kernel's."""
+    import torch
+
+    from chip_smoke import kernel_ms
+    from phantomsdr_tpu_torch.ops.cuda.build import CSRC
+
+    src = (CSRC / "nr.cu").read_text()
+    if any(src.count(line) != 1 for line in NR_SHAPE):
+        raise RuntimeError("csrc/nr.cu changed: its shape lines")
+    texts = {}
+    for t, g in NR_SHAPES:
+        text = src
+        for line, v in zip(NR_SHAPE, (t, g)):
+            text = text.replace(line, line.rsplit("=", 1)[0] + f"= {v};")
+        texts[f"nr_threads{t}_group{g}"] = text
+    libs = build(texts)
+    carries, p, xp, _, _ = nr_case()
+    want = package_nr(carries, p, xp)
+    res = {}
+    for name, lib in libs.items():
+        run, got = nr_raw_call(lib.nr_launch, carries, p, xp)
+        probe, _ = nr_raw_call(lib.nr_chain_probe_launch, carries, p, xp, probe=True)
+        run()
+        torch.cuda.synchronize()
+        if not same(got, want):
+            raise AssertionError(f"K-NR {name} differs")
+        res[name.removeprefix("nr_")] = {"kernel_ms": kernel_ms(run),
+                                         "chain_floor_ms": kernel_ms(probe)}
+    return res
+
+
+# issue cost on the card: each thread runs 8 independent chains of one
+# instruction; cycles a warp-instruction takes its scheduler, from lane 0
+# of warp 0 of each block's clock64
+ISSUE_RATES = r"""
+#include <cuda_runtime.h>
+#define CHAINS(OP) \
+    float x0 = threadIdx.x, x1 = x0 + 1, x2 = x0 + 2, x3 = x0 + 3, x4 = x0 + 4, x5 = x0 + 5, \
+          x6 = x0 + 6, x7 = x0 + 7; \
+    const long long t0 = clock64(); \
+    for (int i = 0; i < n; ++i) { OP(x0); OP(x1); OP(x2); OP(x3); OP(x4); OP(x5); OP(x6); OP(x7); } \
+    const long long t1 = clock64(); \
+    out[blockIdx.x * blockDim.x + threadIdx.x] = x0 + x1 + x2 + x3 + x4 + x5 + x6 + x7; \
+    if (threadIdx.x == 0) cyc[blockIdx.x] = t1 - t0;
+#define FFMA(x) asm volatile("fma.rn.f32 %0, %0, %1, %2;" : "+f"(x) : "f"(a), "f"(b))
+#define FMNMX(x) asm volatile("min.f32 %0, %0, %1;" : "+f"(x) : "f"(a))
+#define FMNMX_NAN(x) asm volatile("min.NaN.f32 %0, %0, %1;" : "+f"(x) : "f"(a))
+#define FSETP_FSEL(x) asm volatile("{ .reg .pred p; setp.gt.f32 p, %0, %1; selp.f32 %0, %2, %0, p; }" : "+f"(x) : "f"(a), "f"(b))
+__global__ void k0(float* out, long long* cyc, int n, float a, float b) { CHAINS(FFMA) }
+__global__ void k1(float* out, long long* cyc, int n, float a, float b) { CHAINS(FMNMX) }
+__global__ void k2(float* out, long long* cyc, int n, float a, float b) { CHAINS(FMNMX_NAN) }
+__global__ void k3(float* out, long long* cyc, int n, float a, float b) { CHAINS(FSETP_FSEL) }
+extern "C" int issue_launch(int which, float* out, long long* cyc, int warps, int n) {
+    void (*k[])(float*, long long*, int, float, float) = {k0, k1, k2, k3};
+    k[which]<<<132, 32 * warps>>>(out, cyc, n, 0.999f, 0.001f);
+    return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def issue_rates() -> dict:
+    """Cycles a warp-instruction of FFMA, FMNMX, FMNMX.NAN and FSETP +
+    FSEL (a pair) takes its SM sub-partition's scheduler, with 8 warps a
+    block (2 a scheduler): the instructions of K-NR's loop by their
+    cost."""
+    import torch
+
+    lib = build({"issue_rates": ISSUE_RATES})["issue_rates"]
+    out = torch.empty(132 * 256, device="cuda")
+    cyc = torch.zeros(132, dtype=torch.int64, device="cuda")
+    res = {}
+    for which, name in enumerate(("ffma", "fmnmx", "fmnmx_nan", "fsetp_fsel_pair")):
+        n, warps = 1024, 8
+        if lib.issue_launch(which, ctypes.c_void_p(out.data_ptr()),
+                            ctypes.c_void_p(cyc.data_ptr()), warps, n) != 0:
+            raise RuntimeError("issue_rates launch failed")
+        torch.cuda.synchronize()
+        res[name] = float(cyc.float().median()) / (n * 8 * warps / 4)
+    return res
+
+
+LINES = ("agc_phases", "pilot_sass", "nr_phases", "anr_phases", "nb_phases", "compare",
+         "pilot_depths", "nr_shapes", "issue_rates", "anr_variants", "wf_variants", "host_us")
 
 
 def main() -> int:
@@ -1105,7 +1574,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_breakdown: no CUDA device", file=sys.stderr)
         return 2
-    from phantomsdr_tpu_torch.ops.cuda import agc, pll, waterfall
+    from phantomsdr_tpu_torch.ops.cuda import agc, nr, pll, waterfall
     from phantomsdr_tpu_torch.ops.cuda.build import (
         CSRC, BUILD_DIR, require_cuda, stream_and_device,
     )
@@ -1128,6 +1597,8 @@ def main() -> int:
                       (where / "agc.cu").read_text(), where, tag),
                   "pilot_sass": lambda where, tag: pilot_sass(
                       (where / "pilot.cu").read_text(), where, tag, sass_dir),
+                  "nr_phases": lambda where, tag: nr_phases(
+                      (where / "nr.cu").read_text(), where, tag),
                   "anr_phases": lambda where, tag: anr_phases(
                       (where / "anr.cu").read_text(), where, tag),
                   "nb_phases": lambda where, tag: nb_phases(
@@ -1140,6 +1611,10 @@ def main() -> int:
         print(json.dumps({"compare": compare(parent)}), flush=True)
     if "pilot_depths" in only:
         print(json.dumps({"pilot_depths": pilot_depths()}), flush=True)
+    if "nr_shapes" in only:
+        print(json.dumps({"nr_shapes": nr_shapes()}), flush=True)
+    if "issue_rates" in only:
+        print(json.dumps({"issue_rates": issue_rates()}), flush=True)
     if "anr_variants" in only:
         print(json.dumps({"anr_variants": anr_variants()}), flush=True)
     if not only & {"wf_variants", "host_us"}:
@@ -1175,6 +1650,9 @@ def main() -> int:
                r // 2 + 1, levels, 20, 6.0206, 6.0206, wf_out.data_ptr(),
                wf_out.shape[1], None, dev, stream)
     wf_raw = waterfall.KERNEL.lib().waterfall_launch
+    nr_carries, nr_p, nr_xp, _, _ = nr_case()
+    nr_args = (nr_carries, nr_p.alpha, nr_p.xih1r, nr_p.pfac, nr_xp)
+    nr_raw, _ = nr_raw_call(nr.KERNEL.lib().nr_launch, *nr_args[:1], nr_p, nr_xp)
 
     print(json.dumps({"host_us": {
         "waterfall_rows": host_us(lambda: waterfall.waterfall_rows(
@@ -1187,8 +1665,33 @@ def main() -> int:
         "empty_like": host_us(lambda: torch.empty_like(state.tail)),
         "stream_and_device": host_us(lambda: stream_and_device(x)),
         "agc_launch_ctypes": host_us(run_raw),
-    }, "events_only_ms": time_ms(lambda: None, 50)}), flush=True)
+        "gain_frames": host_us(lambda: nr.gain_frames(*nr_args)),
+        "nr_launch_ctypes": host_us(nr_raw),
+    }, "events_only_ms": time_ms(lambda: None, 50),
+        "nr_launches_per_call": nr_fusion_launches(),
+        **({"gain_frames_in_turns": gain_frames_in_turns(parent, nr_args)} if parent else {})}),
+        flush=True)
     return 0
+
+
+def gain_frames_in_turns(parent: Path, args) -> dict:
+    """Host us of one K-NR wrapper call: the parent checkout's
+    ops/cuda/nr.py (loaded beside the package's; it launches the
+    package's kernel) and the package's, in turns (parent, package,
+    package, parent, five times), and the medians."""
+    import importlib.util
+
+    from phantomsdr_tpu_torch.ops.cuda import nr
+
+    spec = importlib.util.spec_from_file_location(
+        "phantomsdr_tpu_torch.ops.cuda._nr_parent", parent.parent / "ops/cuda/nr.py")
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    runs = {"parent": [], "package": []}
+    for _ in range(5):
+        for name, mod in (("parent", old), ("package", nr), ("package", nr), ("parent", old)):
+            runs[name].append(host_us(lambda: mod.gain_frames(*args)))
+    return {**runs, "median": {k: float(np.median(v)) for k, v in runs.items()}}
 
 
 if __name__ == "__main__":
