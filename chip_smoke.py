@@ -45,10 +45,22 @@ Phases, one JSON line each (any failure exits non-zero):
              demodulation mode; the tones must come out at their Hz,
              the waterfall peak on its carrier bin, and every kernel
              must have been launched
-6. driver    DSPDriver over an in-memory SampleSource
+5b. mesh     mesh server mode on this card: the bench config as 4
+             shards on cuda:0 (parallel.sharded: the halo passed along
+             the ring, the spectra gathered, the channels sharded), 6
+             'views' steps held against the single-device step on the
+             same stream (int16 audio within 4, power rtol 2e-4,
+             waterfall rows within one step on < 0.1% of bytes); both
+             steps' times, device-busy shares and peak device memory;
+             whether libaom loaded and, if so, the mesh's waterfall rows
+             through the port's AV1 encoder and decoder, losslessly
+6. driver    DSPDriver over an in-memory SampleSource; mesh_driver the
+             same in mesh mode over 8 blocks, the USB listener's tone
+             checked on the last 4
 7. server    the CLI's build() served on localhost; websocket clients
              on /audio and /waterfall must receive packets (skipped
-             only when aiohttp is not installed)
+             only when aiohttp is not installed); mesh_server the same
+             in mesh mode
 7b. nr       the bench config with nr = true for each nr_algo
              (spectral, lms, notch, nb), every listener opted in, 10
              'views' steps with the nr column off and then on: each
@@ -1906,7 +1918,151 @@ def phase_main(cfg, tones, stream, kernels):
     return launches
 
 
-def phase_driver(cfg, tones, host_bytes):
+MESH_STEPS = 6
+
+
+def av1_roundtrip(rows: list[np.ndarray], width: int) -> dict:
+    """Whether libaom loaded and, if it did, ``rows`` (int8 waterfall
+    rows, a multiple of 8) through the port's AV1 encoder and decoder:
+    lossless, so every decoded row must equal its row."""
+    from phantomsdr_tpu_torch.runtime import av1
+
+    if not av1.av1_available():
+        return {"libaom": False, "why": av1._Aom.failure()}
+    enc, dec = av1.AV1Encoder(width), av1.AV1Decoder()
+    units, nbytes = 0, 0
+    for i in range(0, len(rows), av1.WATERFALL_COALESCE):
+        group = rows[i:i + av1.WATERFALL_COALESCE]
+        blob = None
+        for j, row in enumerate(group):
+            blob = enc.send(row.tobytes(), i + j, 0, width)
+        (got,) = dec.decode(blob)
+        if not np.array_equal(got, np.stack(group)):
+            raise AssertionError(f"AV1 round trip: unit {units} differs")
+        units += 1
+        nbytes += len(blob)
+    enc.close()
+    dec.close()
+    return {"libaom": True, "units": units, "rows": len(rows),
+            "bytes": nbytes, "lossless": True}
+
+
+def phase_mesh(cfg, tones, stream, kernels):
+    """Mesh server mode on one card: the bench config as 4 shards on
+    cuda:0 (parallel.sharded through the hand kernels), MESH_STEPS
+    'views' steps against the single-device step on the same stream
+    (int16 audio within 4, power rtol 2e-4, waterfall rows within one
+    step on < 0.1% of bytes); step times of both, their device-busy
+    shares and peak device memory; the mesh's waterfall rows through
+    the port's AV1 pair.  ``kernels`` are the path's (K-WF, K-PLL,
+    K-AGC); returns their launches in the mesh steps."""
+    import torch
+
+    from phantomsdr_tpu_torch.parallel import (
+        ShardedHopPipeline, make_mesh, unpack_outputs_sharded,
+    )
+    from phantomsdr_tpu_torch.pipeline import (
+        HopPipeline, WaterfallViews, channels_from_numpy, to_device,
+    )
+
+    mesh = make_mesh(devices=["cuda:0"] * 4)
+    sp = ShardedHopPipeline(cfg, mesh)
+    pipe = HopPipeline(cfg, device="cuda")
+    table_np, (starts, lengths) = bench_tables(cfg, tones)
+    t1 = channels_from_numpy(*table_np, device="cuda")
+    t4 = sp.channels_from_numpy(*table_np)
+    views = WaterfallViews(start=to_device(starts, torch.int32, "cuda"),
+                           length=to_device(lengths, torch.int32, "cuda"))
+    wph = pipe.wire_per_hop
+    blk = cfg.hop_batch * wph
+    c, half, w = cfg.max_channels, cfg.audio_fft_size // 2, len(starts)
+
+    def single_step(state, s):
+        return pipe.step(state, stream[s * blk: s * blk + blk + wph], t1,
+                         views, "views",
+                         due_idx=pipe.default_due_idx(s * cfg.hop_batch))
+
+    def mesh_step(state, s, due_idx):
+        return sp.step(state, sp.shard_raw(stream[wph + s * blk:
+                                                  wph + (s + 1) * blk]),
+                       t4, views, "views", due_idx=due_idx)
+
+    layouts = [sp.due_layout(s * cfg.hop_batch) for s in range(MESH_STEPS)]
+    due_idx = [to_device(idx, torch.int32, "cuda") for idx, _ in layouts]
+    # the single device's halo for step 0 is the stream's first hop:
+    # the mesh carries it in its state
+    st1 = pipe.init_state()
+    st4 = sp.init_state()._replace(halo=stream[:wph].clone())
+    single, ms1, ms4, rows = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base1 = torch.cuda.memory_allocated()
+    for s in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        st1, o1 = single_step(st1, s)
+        torch.cuda.synchronize()
+        ms1.append((time.perf_counter() - t0) * 1e3)
+        single.append((o1.audio.cpu().numpy(), o1.avg_power.cpu().numpy(),
+                       o1.wf.cpu().numpy()))
+    peak1 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    base4 = torch.cuda.memory_allocated()
+    for k in kernels:
+        k.launches = 0
+    for s in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        st4, o4 = mesh_step(st4, s, due_idx[s])
+        torch.cuda.synchronize()
+        ms4.append((time.perf_counter() - t0) * 1e3)
+        a1, p1, w1 = single[s]
+        counts = layouts[s][1]
+        a4, p4, w4, _ = unpack_outputs_sharded(
+            torch.cat(o4.packed).cpu().numpy(), sp.n, cfg.hop_batch, c,
+            half, w, sp.view_cap, sp.due_cap_local)
+        w4 = w4[sp.due_row_selector(counts)]
+        a_err = int(np.abs(a1.astype(int) - a4.astype(int)).max())
+        if a_err > 4:
+            raise AssertionError(f"mesh step {s}: int16 audio off by {a_err}")
+        np.testing.assert_allclose(p4, p1, rtol=2e-4, atol=1e-12,
+                                   err_msg=f"mesh step {s}: channel power")
+        d = np.abs(w4.astype(int) - w1[:sum(counts)].astype(int))
+        if d.max() > 1 or (d > 0).mean() >= 1e-3:
+            raise AssertionError(f"mesh step {s}: waterfall rows differ "
+                                 f"(max {d.max()}, share {(d > 0).mean()})")
+        rows += [r[0, :cfg.waterfall_size] for r in w4]
+    launches = {k.name: k.launches for k in kernels}
+    peak4 = torch.cuda.max_memory_allocated()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"mesh: a kernel was not launched: {launches}")
+    if int(np.abs(single[-1][0]).max()) < 1000:
+        raise AssertionError("mesh: the compared audio is silent")
+
+    split1 = split_device_us(lambda: single_step(st1, 0))
+    split4 = split_device_us(lambda: mesh_step(st4, 0, due_idx[0]))
+    med1, med4 = float(np.median(ms1[1:])), float(np.median(ms4[1:]))
+    rows = rows[:len(rows) // 8 * 8]
+    emit({"phase": "mesh", "devices": [str(d) for d in mesh],
+          "steps": MESH_STEPS, "launches": launches,
+          "step_ms": {"mesh": ms4, "single": ms1},
+          "step_ms_median": {"mesh": med4, "single": med1},
+          "mesh_over_single": med4 / med1,
+          "device_split": {"mesh": split4, "single": split1},
+          "device_busy_share": {"mesh": split4["total_us"] / 1e3 / med4,
+                                "single": split1["total_us"] / 1e3 / med1},
+          # the peak during each run, and above what was held before it
+          # (the capture, both pipelines' tables and carries)
+          "peak_device_bytes": {"mesh": peak4, "single": peak1},
+          "peak_device_bytes_above_start": {"mesh": peak4 - base4,
+                                            "single": peak1 - base1},
+          "av1": av1_roundtrip(rows, cfg.waterfall_size)})
+    return launches
+
+
+def phase_driver(cfg, tones, host_bytes, mesh=None, tone_from=None):
+    """DSPDriver over an in-memory capture with the USB tone's listener
+    and one waterfall client (on ``mesh`` in mesh mode); with
+    ``tone_from`` the listener's audio of the batches from that one on
+    must carry its tone."""
     from phantomsdr_tpu_torch.ops.quantize import pyramid_level_offsets
     from phantomsdr_tpu_torch.runtime.driver import DSPDriver, SampleSource
     from phantomsdr_tpu_torch.runtime.registry import (
@@ -1927,24 +2083,34 @@ def phase_driver(cfg, tones, host_bytes):
     def consumer(frame0, audio, pwr, wfv, due, wf_meta, audio_meta, rds):
         if audio.shape[0] != cfg.hop_batch or not np.isfinite(pwr).all():
             bad.append((frame0, audio.shape))
-        got.append((frame0, wfv is not None))
+        got.append((frame0, audio[:, slot.slot].copy()))
         if len(got) >= nblocks:
             done.set()
 
     drv = DSPDriver(cfg, src, channels, consumer, waterfall_registry=wf,
-                    waterfall_active=lambda: True, device="cuda")
+                    waterfall_active=lambda: True, device="cuda", mesh=mesh)
     drv.start()
     ok = done.wait(timeout=300)
     drv.stop()
     snap = drv.metrics.snapshot(cfg)
+    name = "mesh_driver" if mesh else "driver"
     if not ok or bad or drv.metrics.device_errors:
-        raise AssertionError(f"driver: {len(got)}/{nblocks} batches, bad "
+        raise AssertionError(f"{name}: {len(got)}/{nblocks} batches, bad "
                              f"{bad}, errors {drv.metrics.device_errors} "
                              f"{drv.metrics.last_device_error}")
-    emit({"phase": "driver", "batches": len(got),
+    tone = None
+    if tone_from is not None:
+        x = np.concatenate([a for _, a in got[tone_from:]]).reshape(-1)
+        tone = {"want_hz": tones.tone_bins[0] * tones.df,
+                "got_hz": peak_hz(x.astype(np.float64), tones.audio_rate),
+                "rms": float(np.sqrt(np.mean(x.astype(np.float64) ** 2)))}
+        if abs(tone["got_hz"] - tone["want_hz"]) > 3.0 or tone["rms"] < 100:
+            raise AssertionError(f"{name}: USB tone {tone}")
+    emit({"phase": name, "batches": len(got),
           "device_errors": drv.metrics.device_errors,
           "step_ms_p50": snap["step_ms_p50"],
-          "msps_device": snap["msps_device"]})
+          "msps_device": snap["msps_device"], "tone": tone,
+          "devices": [str(d) for d in drv.devices]})
 
 
 async def _server_clients(port: int, tones):
@@ -1978,7 +2144,7 @@ async def _server_clients(port: int, tones):
     return out
 
 
-def phase_server(cfg, tones, host_bytes):
+def phase_server(cfg, tones, host_bytes, mesh=None):
     try:
         from aiohttp import web
     except ImportError:
@@ -1987,7 +2153,7 @@ def phase_server(cfg, tones, host_bytes):
     from phantomsdr_tpu_torch.main import build
 
     server, driver = build(cfg, io.BytesIO(host_bytes), loop_file=True,
-                           device="cuda")
+                           device="cuda", mesh=mesh)
     driver.start()
 
     async def run():
@@ -2008,12 +2174,13 @@ def phase_server(cfg, tones, host_bytes):
         res = asyncio.run(run())
     finally:
         driver.stop()
+    name = "mesh_server" if mesh else "server"
     if res["audio_packets"] < 3 or res["waterfall_packets"] < 2:
-        raise AssertionError(f"server: {res}")
+        raise AssertionError(f"{name}: {res}")
     if driver.metrics.device_errors:
-        raise AssertionError(f"server: device errors "
+        raise AssertionError(f"{name}: device errors "
                              f"{driver.metrics.last_device_error}")
-    emit({"phase": "server", **res,
+    emit({"phase": name, **res,
           "device_errors": driver.metrics.device_errors})
 
 
@@ -2048,16 +2215,26 @@ def main() -> int:
     phase_small_wbfm()
     phase_small_nr()
     launches = phase_main(cfg, tones, stream, main_kernels)
+    # mesh server mode: the bench config as 4 shards on this card
+    mesh_cfg = config_from_dict({"input": BENCH_CFG["input"],
+                                 "tpu": {**BENCH_CFG["tpu"],
+                                         "mesh_devices": 4}})
+    mesh_launches = phase_mesh(mesh_cfg, tones, stream, main_kernels)
     host_bytes = stream[:4 * 2 * blk].cpu().numpy().tobytes()
+    mesh_bytes = stream[:8 * 2 * blk].cpu().numpy().tobytes()
     del stream
     phase_driver(cfg, tones, host_bytes)
     phase_server(cfg, tones, host_bytes)
+    phase_driver(mesh_cfg, tones, mesh_bytes, mesh=["cuda:0"] * 4,
+                 tone_from=4)
+    phase_server(mesh_cfg, tones, host_bytes, mesh=["cuda:0"] * 4)
     nr_launches = phase_nr(kernels)
     wbfm_launches = phase_wbfm(kernels)
     rds_launches = phase_rds(kernels)
 
     # each kernel's launches on its path: the bench-config main phase
-    # for K-WF, K-PLL and K-AGC, the wideband WBFM phase for K-PILOT,
+    # for K-WF, K-PLL and K-AGC (beside them, the mesh phase's), the
+    # wideband WBFM phase for K-PILOT,
     # K-DEEMPH and K-AGC float, the nr phase's opted-in run of spectral
     # (K-NR), lms (K-ANR) and nb (K-NB: both its launchers)
     nr_path = {"nr": "spectral", "anr": "lms", "nb_repair": "nb"}
@@ -2074,7 +2251,9 @@ def main() -> int:
         row["launches"] = min(counts[x.name] for x in launchers)
         row["launches_path"] = path
         row["launches_by_path"] = {
-            "main": launches.get(k.name, 0), "wbfm": wbfm_launches[k.name],
+            "main": launches.get(k.name, 0),
+            "mesh": mesh_launches.get(k.name, 0),
+            "wbfm": wbfm_launches[k.name],
             "rds": rds_launches[k.name],
             **{f"nr {a}": nr_launches[a][k.name] for a in NR_ALGOS}}
         if len(launchers) > 1:

@@ -14,12 +14,11 @@ for compatibility; the compute device is chosen by the caller
 (``HopPipeline(cfg, device=...)``, ``--device``).
 
 This is the PyTorch/CUDA package's own copy of the JAX package's
-config, with its validations.  The options this package does not
-implement yet are rejected at config time with a clear error
-(``unsupported_options``), never silently skipped: mesh mode and AV1
-waterfall compression.  The ``[tpu]`` table keeps its
-name for config-file compatibility; its ``fft_strategy`` key is read
-and ignored.
+config, with its validations, and a few of its own that fail at load
+what would otherwise fail at the first step (a mesh that does not
+divide the step, the K-AGC step limit, an unknown waterfall codec).
+The ``[tpu]`` table keeps its name for config-file compatibility; its
+``fft_strategy`` key is read and ignored.
 """
 
 from __future__ import annotations
@@ -109,13 +108,17 @@ class ServerConfig:
     hop_batch: int = 4              # hops per device step
     max_channels: int = 128         # static channel-table capacity
     fft_strategy: str = "auto"      # read for compatibility, unused
-    mesh_devices: int = 1           # >1 is rejected (unsupported_options)
+    mesh_devices: int = 1           # >1: run the server on a device mesh
+    #                                 (time-sharded FFT + channel-sharded
+    #                                 demod, parallel/sharded.py)
     channel_bucket: int = 32        # active-channel bucketing: when the
     #                                 highest active slot fits, the step
     #                                 runs at this table width instead of
     #                                 max_channels, shrinking output
     #                                 bytes + demod compute to the live
-    #                                 population.  0 disables.
+    #                                 population.  0 disables.  Single-
+    #                                 device mode only (the mesh shards
+    #                                 the fixed channel axis).
 
     # ------------- derived (filled by finalize) -------------
     fft_result_size: int = field(default=0)
@@ -286,11 +289,17 @@ class ServerConfig:
                 f"{max_stream(window)} at audio_sps={self.audio_sps} "
                 f"(window {window}); lower hop_batch")
 
-        unsupported = unsupported_options(self)
-        if unsupported:
+        if self.mesh_devices > 1 and (self.hop_batch % self.mesh_devices
+                                      or self.max_channels
+                                      % self.mesh_devices):
             raise ValueError(
-                "not supported by phantomsdr_tpu_torch yet: "
-                + "; ".join(unsupported))
+                f"[tpu] mesh_devices={self.mesh_devices}: hop_batch "
+                f"({self.hop_batch}) and max_channels ({self.max_channels}) "
+                f"must divide evenly over the mesh")
+        if self.waterfall_compression not in ("zstd", "av1"):
+            raise ValueError(
+                f"[input] waterfall_compression must be zstd or av1, not "
+                f"{self.waterfall_compression!r}")
 
         if not self.register_password:
             self.register_password = secrets.token_hex(16)
@@ -355,17 +364,6 @@ class ServerConfig:
         """Interleaved audio channels on the wire (2 with device WBFM
         stereo, else the reference's mono)."""
         return 2 if self.stereo else 1
-
-
-def unsupported_options(c: ServerConfig) -> list[str]:
-    """The opt-in stages this package does not implement yet, as they
-    are set in ``c`` (empty when the config is servable)."""
-    out = []
-    if c.mesh_devices > 1:
-        out.append(f"[tpu] mesh_devices={c.mesh_devices}")
-    if c.waterfall_compression == "av1":
-        out.append("[input] waterfall_compression='av1'")
-    return out
 
 
 def load_config(path: str) -> ServerConfig:

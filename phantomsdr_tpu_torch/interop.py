@@ -9,13 +9,18 @@ a device; ``state_to_numpy`` returns this package's state with numpy
 leaves, fields named as in the JAX package.  Nothing here imports JAX:
 the JAX types are read by their field names (the noise processor's
 carries by theirs: ``NRState``, ``ANRState`` or ``NBState``).
+``sharded_state_from_numpy`` and ``sharded_state_to_numpy`` do the same
+for the mesh's ``ShardedHopState``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from .ops import convert
 from .ops.agc import AGCState, DCBlockerState
 from .ops.anr import ANRState
 from .ops.channelizer import ChannelState
@@ -24,8 +29,10 @@ from .ops.nr import NRState
 from .ops.polyphase import DecimatorState
 from .ops.rds import RDSState
 from .ops.stereo import StereoState
+from .parallel.sharded import ShardedHopState
 from .pipeline import (
-    AudioState, HopState, WaterfallViews, channels_from_numpy, to_device,
+    AudioState, HopState, WaterfallViews, channels_from_numpy, map_rows,
+    to_device,
 )
 
 
@@ -83,3 +90,50 @@ def state_to_numpy(state):
         return np.bool_(state)
     return np.int32(state)
 
+
+
+class ShardedCarries(NamedTuple):
+    """The JAX package's ShardedHopState layout with numpy leaves:
+    ``inner`` a HopState whose channel carries are in global row order,
+    ``halo`` [n, wire_per_hop] (row 0 the carried tail; the JAX mesh
+    never reads the other rows)."""
+
+    inner: HopState
+    halo: np.ndarray
+
+
+def _split_rows(audio: AudioState, n: int) -> list[AudioState]:
+    """Global channel carries -> n row blocks (the per-stream rows are
+    channel-major, so equal blocks split them by channel too)."""
+    return [map_rows(lambda x, _g, i=i: x[i * (x.shape[0] // n):
+                                          (i + 1) * (x.shape[0] // n)],
+                     audio) for i in range(n)]
+
+
+def sharded_state_from_numpy(tree, pipe) -> ShardedHopState:
+    """JAX ShardedHopState (numpy leaves) -> the state of ``pipe`` (a
+    ShardedHopPipeline), each shard's carries on its device."""
+    inner = state_from_numpy(tree.inner)
+    blocks = _split_rows(inner.audio, pipe.n)
+    audio = tuple(map_rows(lambda x, _g, d=d: x.to(d), blk)
+                  for blk, d in zip(blocks, pipe.devices))
+    halo = np.ascontiguousarray(np.asarray(tree.halo)[0])
+    halo = halo.view(convert.device_dtype(pipe.cfg.input_format))
+    return ShardedHopState(frame=inner.frame, audio=audio,
+                           halo=_tensor(halo, pipe.device))
+
+
+def sharded_state_to_numpy(state: ShardedHopState) -> ShardedCarries:
+    """A ShardedHopState -> ShardedCarries: the shards' carries joined
+    in global row order and the halo as row 0 of an [n, wire_per_hop]
+    array whose other rows are zero."""
+    joined = [state_to_numpy(a) for a in state.audio]
+    audio = type(joined[0])(*(
+        type(part)(*(np.concatenate(x) for x in zip(*parts)))
+        if isinstance(part, tuple) else np.concatenate(parts)
+        for part, parts in zip(joined[0], zip(*joined))))
+    halo = np.zeros((len(state.audio),) + tuple(state.halo.shape),
+                    state_to_numpy(state.halo).dtype)
+    halo[0] = state_to_numpy(state.halo)
+    return ShardedCarries(inner=HopState(frame=np.int32(state.frame),
+                                         audio=audio), halo=halo)

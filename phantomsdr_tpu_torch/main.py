@@ -3,8 +3,10 @@
 Mirrors the reference main (reference: src/spectrumserver.cpp:299-372):
 parse -c/--config TOML, reopen stdin binary, build the sample source
 for the configured wire format, start the DSP driver and the serving
-edge, install SIGINT shutdown.  Single process, one device:
-``--device cuda`` (the default) or ``--device cpu``.
+edge, install SIGINT shutdown.  Single process, on ``--device cuda``
+(the default) or ``--device cpu``; with ``[tpu] mesh_devices = N`` the
+server runs as a mesh of N shards: on N cards, or with ``--device cpu``
+on N CPU shards.
 """
 
 from __future__ import annotations
@@ -46,9 +48,11 @@ def make_site(runner, host: str, port: int):
                         reuse_address=True), host)
 
 
-def build(cfg, stream, loop_file=False, throttle=0.0, device="cuda"):
-    """(server, driver) for one device; the caller starts the driver and
-    runs ``server.app``."""
+def build(cfg, stream, loop_file=False, throttle=0.0, device="cuda",
+          mesh=None):
+    """(server, driver) on ``device`` (in mesh mode: on ``mesh``, a
+    device list, or mesh_devices devices of ``device``); the caller
+    starts the driver and runs ``server.app``."""
     # build the native codec library up front, not on the serving path
     if cfg.audio_compression == "flac":
         from .runtime.codecs import _load_hostlib
@@ -63,7 +67,7 @@ def build(cfg, stream, loop_file=False, throttle=0.0, device="cuda"):
         waterfall_registry=server.waterfalls,
         waterfall_active=server.waterfall_active,
         audio_active=server.audio_active,
-        device=device,
+        device=device, mesh=mesh,
     )
     server.driver = driver
     return server, driver
@@ -83,7 +87,8 @@ def main(argv=None):
                     help="throttle file replay to the configured sps")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="compute device (=cuda); cpu runs the plain "
-                         "PyTorch versions of the kernels")
+                         "PyTorch versions of the kernels.  With [tpu] "
+                         "mesh_devices = N: N cards, or N CPU shards")
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config)

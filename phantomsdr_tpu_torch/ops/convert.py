@@ -63,6 +63,17 @@ def host_preconvert(raw: np.ndarray, fmt: str) -> np.ndarray:
     return arr
 
 
+def device_dtype(fmt: str) -> np.dtype:
+    """Dtype of ``host_preconvert``'s output, the one the device sees:
+    the wire dtype, with f64 as f32 and u16/u32 as their signed views.
+    The mesh's overlap halo must have it, since it is concatenated with
+    the raw shards on the device."""
+    d = SAMPLE_FORMATS[fmt][0]
+    if d == np.float64:
+        return np.dtype(np.float32)
+    return _SIGNED_VIEW.get(fmt, d)
+
+
 def to_float(x: torch.Tensor, fmt: str) -> torch.Tensor:
     """Device-side conversion of ``host_preconvert`` output to
     normalized float32 in [-1, 1).

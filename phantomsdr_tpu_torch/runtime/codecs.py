@@ -403,12 +403,29 @@ def _load_zstd():
         lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
         lib.ZSTD_isError.restype = ctypes.c_uint
         lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+        lib.ZSTD_compress.restype = ctypes.c_size_t
+        lib.ZSTD_compress.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                      ctypes.c_char_p, ctypes.c_size_t,
+                                      ctypes.c_int]
         _zstdlib = lib
     return _zstdlib
 
 
 _ZSTD_C_COMPRESSION_LEVEL = 100
 _ZSTD_E_FLUSH = 1
+
+
+def zstd_frame(data: bytes, level: int) -> bytes:
+    """``data`` as one whole zstd frame (ZSTD_compress), which a fresh
+    decoder decodes alone -- unlike a ``ZstdStream`` message after the
+    first."""
+    lib = _load_zstd()
+    cap = lib.ZSTD_compressBound(len(data))
+    dst = ctypes.create_string_buffer(cap)
+    n = lib.ZSTD_compress(dst, cap, data, len(data), level)
+    if lib.ZSTD_isError(n):
+        raise RuntimeError(f"zstd error {n}")
+    return dst.raw[:n]
 
 
 class ZstdStream:

@@ -11,6 +11,11 @@ non-blocking copy, and each step's packed outputs come back the same
 way, fenced by a CUDA event: one step stays in flight while the host
 hands the previous one to the consumer.
 
+With ``[tpu] mesh_devices = N`` the same loops run over the time- and
+channel-sharded engine (``parallel.sharded``) on a list of N devices:
+N cards, the N CPU shards of ``device="cpu"``, or the list passed as
+``mesh`` (``[cuda:0] * N`` runs the mesh on one card).
+
 Also the home of the perf counters: hop counter, sustained MSPS,
 per-step device latency.
 """
@@ -32,6 +37,9 @@ from ..config import ServerConfig
 from ..ops.convert import wire_dtype, host_preconvert
 from ..ops.cuda import all_kernels
 from ..ops.cuda.build import build_all
+from ..parallel.sharded import (
+    ShardedHopPipeline, make_mesh, unpack_outputs_sharded,
+)
 from ..pipeline import (
     HopPipeline, WaterfallViews, channels_from_numpy, pad_due_positions,
     to_device, unpack_outputs, waterfall_due_positions,
@@ -82,12 +90,16 @@ class SampleSource:
     raw wire ints; conversion happens on device."""
 
     def __init__(self, cfg: ServerConfig, stream: io.BufferedReader,
-                 loop_file: bool = False, throttle_sps: float = 0.0):
+                 loop_file: bool = False, throttle_sps: float = 0.0,
+                 include_halo: bool = True):
         self.cfg = cfg
         self.stream = stream
         self.dtype = wire_dtype(cfg.input_format)
         self.wire_per_hop = cfg.hop_size * (1 if cfg.is_real else 2)
         self.block_wire = cfg.hop_batch * self.wire_per_hop
+        # mesh mode reads WITHOUT the host halo: the overlap hop moves
+        # between the time shards (parallel/sharded.py ring permute)
+        self.include_halo = include_halo
         self.halo = np.zeros(self.wire_per_hop, self.dtype)
         self.loop_file = loop_file
         self.throttle_sps = throttle_sps  # simulate realtime for file replay
@@ -95,7 +107,8 @@ class SampleSource:
         self._consumed = 0
 
     def read_block(self) -> np.ndarray | None:
-        """Return [(B+1)*wph] wire samples (halo + new); None on EOF."""
+        """Return [(B+1)*wph] wire samples (halo + new), or [B*wph] when
+        include_halo is False; None on EOF."""
         need = self.block_wire * self.dtype.itemsize
         data = b""
         while len(data) < need:
@@ -107,8 +120,11 @@ class SampleSource:
                 return None
             data += chunk
         new = np.frombuffer(data, self.dtype)
-        block = np.concatenate([self.halo, new])
-        self.halo = new[-self.wire_per_hop:]
+        if not self.include_halo:
+            block = new
+        else:
+            block = np.concatenate([self.halo, new])
+            self.halo = new[-self.wire_per_hop:]
         if self.throttle_sps > 0:
             scalars_per_sample = 1 if self.cfg.is_real else 2
             self._consumed += self.block_wire / scalars_per_sample
@@ -122,24 +138,30 @@ class SampleSource:
 
 
 class _Fetch:
-    """One step's packed outputs on their way to the host.  On CUDA the
-    copy goes into a pinned buffer without blocking and a CUDA event
-    marks its end; ``result`` waits for that event only."""
+    """One step's packed outputs on their way to the host: one buffer,
+    or in mesh mode one per device, joined in order.  On CUDA each copy
+    goes into a pinned buffer without blocking and a CUDA event on its
+    device's stream marks its end; ``result`` waits for those events
+    only."""
 
-    def __init__(self, packed: torch.Tensor):
-        if packed.device.type == "cuda":
-            self.host = torch.empty(packed.shape, dtype=packed.dtype,
-                                    pin_memory=True)
-            self.host.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host, self.event = packed, None
+    def __init__(self, packed: torch.Tensor | list[torch.Tensor]):
+        self.host, self.events = [], []
+        for p in packed if isinstance(packed, list) else [packed]:
+            if p.device.type == "cuda":
+                h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                h.copy_(p, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(p.device))
+                self.events.append(ev)
+                p = h
+            self.host.append(p)
 
     def result(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+        for ev in self.events:
+            ev.synchronize()
+        if len(self.host) == 1:
+            return self.host[0].numpy()
+        return np.concatenate([h.numpy() for h in self.host])
 
 
 class DSPDriver:
@@ -154,7 +176,7 @@ class DSPDriver:
                  waterfall_registry=None,
                  waterfall_active: Callable[[], bool] = lambda: True,
                  audio_active: Callable[[], bool] = lambda: True,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg = cfg
         self.source = source
         self.registry = channel_registry
@@ -163,8 +185,17 @@ class DSPDriver:
         self.waterfall_active = waterfall_active
         self.audio_active = audio_active
         self.metrics = Metrics()
-        self.pipe = HopPipeline(cfg, device=device)
+        self.sharded = cfg.mesh_devices > 1
+        if self.sharded:
+            # mesh server mode: ``mesh`` (a device list) or N devices of
+            # ``device``
+            self.pipe = ShardedHopPipeline(
+                cfg, make_mesh(cfg.mesh_devices, device, devices=mesh))
+            source.include_halo = False
+        else:
+            self.pipe = HopPipeline(cfg, device=device)
         self.device = self.pipe.device
+        self.devices = self.pipe.devices if self.sharded else [self.device]
         self._queue: queue.Queue = queue.Queue(maxsize=3)
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
@@ -252,9 +283,13 @@ class DSPDriver:
         if (v, k) != self._table_key or self._table is None:
             rows = arrays if k is None else tuple(a[:k] for a in arrays)
             # registry columns: l, r, m_idx, mode, active, nr, rds, am_env
-            self._table = channels_from_numpy(*rows[:5], am_env=rows[7],
-                                              rds=rows[6], nr=rows[5],
-                                              device=self.device)
+            if self.sharded:  # each shard's table on its device
+                self._table = self.pipe.channels_from_numpy(
+                    *rows[:5], am_env=rows[7], rds=rows[6], nr=rows[5])
+            else:
+                self._table = channels_from_numpy(
+                    *rows[:5], am_env=rows[7], rds=rows[6], nr=rows[5],
+                    device=self.device)
             self._table_key = (v, k)
         if self._np_views is not None:
             wv, start, length = self._np_views
@@ -269,32 +304,69 @@ class DSPDriver:
             self._views = self.pipe.empty_views()
         return self._table, self._views
 
-    def _due_tensor(self, due: list[int]) -> torch.Tensor:
-        """Device gather positions for a due list (at most skip_num
-        distinct lists occur, so each is copied to the device once)."""
-        key = tuple(pad_due_positions(due, self.pipe.due_cap))
+    def _due_tensor(self, frame0: int, due: list[int]
+                    ) -> tuple[torch.Tensor, list[int] | None]:
+        """Device gather positions for a step's due list (at most
+        skip_num distinct lists occur, so each is copied to the device
+        once), and in mesh mode the selector of the due rows among the
+        per-shard padded wf rows (None otherwise)."""
+        sel = None
+        if self.sharded:
+            idx, counts = self.pipe.due_layout(frame0)
+            key = tuple(idx.reshape(-1))
+            sel = self.pipe.due_row_selector(counts)
+        else:
+            key = tuple(pad_due_positions(due, self.pipe.due_cap))
         t = self._due_idx.get(key)
         if t is None:
             t = self._due_idx[key] = to_device(key, torch.int32, self.device)
-        return t
+        return t, sel
 
-    def _prepare_raw(self, block: np.ndarray) -> torch.Tensor:
-        return to_device(host_preconvert(block, self.cfg.input_format),
-                         None, self.device)
+    def _prepare_raw(self, block: np.ndarray):
+        pre = host_preconvert(block, self.cfg.input_format)
+        if self.sharded:
+            return self.pipe.shard_raw(pre)
+        return to_device(pre, None, self.device)
+
+    def _unpack(self, packed: np.ndarray, k: int, w: int, due, wf_sel):
+        """(audio, pwr, wf or None, rds) of a step that ran at channel
+        width k with a view table of w rows."""
+        cfg = self.cfg
+        if self.sharded:
+            rows = self.pipe.due_cap_local if due is not None else 0
+            audio, pwr, wf, rds = unpack_outputs_sharded(
+                packed, self.pipe.n, cfg.hop_batch, k,
+                cfg.audio_fft_size // 2, w, self.pipe.view_cap, rows,
+                decim=self.pipe.decim, nch=cfg.audio_channels,
+                rds_t=self.pipe.rds_t)
+            if wf is not None:
+                wf = wf[wf_sel]  # padded per-shard rows -> due order
+            return audio, pwr, wf, rds
+        d = self.pipe.due_cap if due is not None else 0
+        audio, pwr, wf, rds = unpack_outputs(
+            packed, cfg.hop_batch, k, cfg.audio_fft_size // 2, d, w,
+            self.pipe.view_cap, decim=self.pipe.decim,
+            nch=cfg.audio_channels, rds_t=self.pipe.rds_t)
+        return audio, pwr, wf if due is not None else None, rds
 
     def _device_loop(self):
         cfg = self.cfg
         state = self.pipe.init_state()
         scalars_per_sample = 1 if cfg.is_real else 2
-        # (frame0, fetch, due_list_or_None, wf_meta, audio_meta, (k, w),
-        #  t_start) -- (k, w) are the channel-bucket and view-table
-        #  widths the step RAN at, which flush must unpack with even if
-        #  the current widths have changed since
+        # (frame0, fetch, due_list_or_None, wf_sel, wf_meta, audio_meta,
+        #  (k, w), t_start) -- wf_sel maps the mesh's per-shard padded wf
+        #  rows to the due list's order; (k, w) are the channel-bucket
+        #  and view-table widths the step RAN at, which flush must unpack
+        #  with even if the current widths have changed since
         pending = None
-        # active-channel bucketing: run the step at the small table width
+        was_idle = False
+        # active-channel bucketing (single device only: the mesh shards
+        # the fixed channel axis): run the step at the small table width
         # whenever every live slot fits, full width otherwise
         small = (cfg.channel_bucket
-                 if 0 < cfg.channel_bucket < cfg.max_channels else 0)
+                 if (not self.sharded
+                     and 0 < cfg.channel_bucket < cfg.max_channels)
+                 else 0)
         k_cur = small or cfg.max_channels
         if small:
             state = self.pipe.resize_channel_rows(state, k_cur)
@@ -311,8 +383,8 @@ class DSPDriver:
                 # first opt-in
                 build_all(all_kernels())
             self._refresh_table()
-            zeros = np.zeros(self.source.block_wire + self.source.wire_per_hop,
-                             self.source.dtype)
+            halo = 0 if self.sharded else self.source.wire_per_hop
+            zeros = np.zeros(self.source.block_wire + halo, self.source.dtype)
             raw = self._prepare_raw(zeros)
             for k in ([small, None] if small else [None]):
                 warm_state = self.pipe.init_state()
@@ -324,8 +396,11 @@ class DSPDriver:
                                                      table, views, m)
                     _Fetch(out.packed).result()
             del warm_state
+            where = (f"mesh x{cfg.mesh_devices} on "
+                     f"{', '.join(map(str, self.devices))}"
+                     if self.sharded else str(self.device))
             print(f"device pipeline warmed up in {time.monotonic()-t0:.1f}s "
-                  f"({self.device}"
+                  f"({where}"
                   f"{', bucket %d/%d' % (small, cfg.max_channels) if small else ''})",
                   flush=True)
         except Exception as e:
@@ -339,7 +414,7 @@ class DSPDriver:
             nonlocal pending
             if pending is None:
                 return
-            frame0, fetch, due, wf_meta, audio_meta, kw, t0 = pending
+            frame0, fetch, due, wf_sel, wf_meta, audio_meta, kw, t0 = pending
             pending = None
             try:
                 packed = fetch.result()
@@ -348,16 +423,10 @@ class DSPDriver:
                 self.metrics.last_device_error = repr(e)[:300]
                 return
             # (channel, view-table) widths the step actually RAN with
-            k, w = kw
-            d = self.pipe.due_cap if due is not None else 0
-            audio, pwr, wf, rds = unpack_outputs(
-                packed, cfg.hop_batch, k, cfg.audio_fft_size // 2, d, w,
-                self.pipe.view_cap, decim=self.pipe.decim,
-                nch=cfg.audio_channels, rds_t=self.pipe.rds_t)
+            audio, pwr, wf, rds = self._unpack(packed, *kw, due, wf_sel)
             self.metrics.step_seconds.append(time.monotonic() - t0)
             try:
-                self.consumer(frame0, audio, pwr,
-                              wf if due is not None else None,
+                self.consumer(frame0, audio, pwr, wf,
                               due if due is not None else [],
                               wf_meta, audio_meta, rds)
             except Exception:
@@ -382,7 +451,17 @@ class DSPDriver:
                 flush_pending()
                 self.metrics.idle_frames += cfg.hop_batch
                 self.metrics.frames += cfg.hop_batch
+                was_idle = True
                 continue
+            if was_idle and self.sharded:
+                # the mesh keeps the overlap halo on the device, so it
+                # went stale across the idle gap (the single-device path
+                # refreshes its host halo on every discarded block):
+                # re-init to a zero halo like a cold start, seeding the
+                # stream's hop parity so the (-1)^(m*hop) fix-up stays
+                # polarity-continuous
+                state = self.pipe.init_state(self.metrics.frames)
+            was_idle = False
             resets = self._refresh_table()
             if small:
                 # bucket decision from THIS snapshot: grow immediately
@@ -411,7 +490,8 @@ class DSPDriver:
             t0 = time.monotonic()
             if resets is not None:
                 resets = to_device(resets, torch.int32, self.device)
-            due_idx = self._due_tensor(due) if due else None
+            due_idx, wf_sel = (self._due_tensor(frame0, due) if due
+                               else (None, None))
             wf_meta = self._wf_meta
             audio_meta = self._audio_meta
             try:
@@ -445,7 +525,7 @@ class DSPDriver:
             # one step in flight: fetch the previous step's outputs only
             # after this one is queued (overlaps transfer & compute)
             flush_pending()
-            pending = (frame0, fetch, due if due else None, wf_meta,
+            pending = (frame0, fetch, due if due else None, wf_sel, wf_meta,
                        audio_meta, (k_cur, int(views.start.shape[0])), t0)
             if self._queue.empty():
                 # input-paced (realtime SDR slower than the device):

@@ -895,3 +895,75 @@ def test_failed_launch_raises_without_fallback(dev):
     with pytest.raises(RuntimeError, match="anr_launch failed"):
         anr.lms_blocks(*state, x, taps, delay, 1e-4, 0.1, False, 256)
     assert anr.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("cards", [1, 4])
+def test_mesh_step_matches_single_device(dev, cards):
+    """The mesh (4 shards: on one card, or on four where there are
+    four) against the single-device step on the card over three chained
+    'views' steps, both from the stream's first hop as halo: int16
+    audio within 4, power rtol 2e-4, waterfall rows within one step on
+    < 0.1% of bytes; the mesh launches the path's kernels."""
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.ops.quantize import pyramid_level_offsets
+    from phantomsdr_tpu_torch.parallel import (
+        ShardedHopPipeline, make_mesh, unpack_outputs_sharded,
+    )
+    from phantomsdr_tpu_torch.pipeline import (
+        HopPipeline, WaterfallViews, channels_from_numpy,
+    )
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    n = 4
+    mesh = make_mesh(n, "cuda") if cards > 1 else make_mesh(
+        devices=[dev] * n)
+    cfg = config_from_dict({
+        "input": {"sps": 192000, "frequency": 7000000, "fft_size": 4096,
+                  "signal": "iq", "audio_sps": 12000, "waterfall_size": 512,
+                  "driver": {"format": "s16"}},
+        "tpu": {"hop_batch": 8, "max_channels": 16}})
+    sp, pipe = ShardedHopPipeline(cfg, mesh), HopPipeline(cfg, device=dev)
+    c = cfg.max_channels
+    l = np.linspace(10, cfg.fft_result_size - 300, c).astype(np.int32)
+    cols = (l, l + 100, l + 50, np.arange(c) % 4, np.ones(c, bool))
+    t1, t4 = channels_from_numpy(*cols, device=dev), sp.channels_from_numpy(
+        *cols)
+    offs = pyramid_level_offsets(cfg.fft_result_size, cfg.downsample_levels)
+    views = WaterfallViews(
+        start=torch.tensor([offs[0] + 100, offs[2]], dtype=torch.int32,
+                           device=dev),
+        length=torch.tensor([512, 300], dtype=torch.int32, device=dev))
+    wph = pipe.wire_per_hop
+    blk = cfg.hop_batch * wph
+    g = torch.Generator(device=dev).manual_seed(9)
+    stream = (torch.randn(4 * blk + wph, device=dev, generator=g)
+              * 4000).to(torch.int16)
+    st1 = pipe.init_state()
+    st4 = sp.init_state()._replace(halo=stream[:wph].clone())
+    for k in (waterfall.KERNEL, pll.KERNEL, agc.KERNEL):
+        k.launches = 0
+    for s in range(3):
+        frame0 = s * cfg.hop_batch
+        idx, counts = sp.due_layout(frame0)
+        st4, o4 = sp.step(st4, sp.shard_raw(stream[wph + s * blk:
+                                                   wph + (s + 1) * blk]),
+                          t4, views, "views", due_idx=idx)
+        st1, o1 = pipe.step(st1, stream[s * blk:(s + 1) * blk + wph], t1,
+                            views, "views",
+                            due_idx=pipe.default_due_idx(frame0))
+        packed = np.concatenate([p.cpu().numpy() for p in o4.packed])
+        a4, p4, w4, _ = unpack_outputs_sharded(
+            packed, n, cfg.hop_batch, c, cfg.audio_fft_size // 2, 2,
+            sp.view_cap, sp.due_cap_local)
+        a1 = o1.audio.cpu().numpy()
+        assert np.abs(a1.astype(int) - a4.astype(int)).max() <= 4
+        np.testing.assert_allclose(p4, o1.avg_power.cpu().numpy(),
+                                   rtol=2e-4, atol=1e-12)
+        w1 = o1.wf.cpu().numpy()[:sum(counts)].astype(int)
+        d = np.abs(w4[sp.due_row_selector(counts)].astype(int) - w1)
+        assert d.max() <= 1 and (d > 0).mean() < 1e-3
+    # a launch of each a step: the single device's, and each shard's
+    # (every shard has an AM row)
+    assert (waterfall.KERNEL.launches, pll.KERNEL.launches,
+            agc.KERNEL.launches) == (3 * (n + 1),) * 3

@@ -1,9 +1,9 @@
 """The PyTorch port served end to end on CPU: main.build -> DSPDriver ->
 SpectrumServer, driven by a websocket client that decodes the FLAC
 audio of an AM tone capture (the flow of tools/verify/client.py's tone
-check); plus the package's import boundary, its device default, the
-config-time rejection of the stages it does not implement yet and the
-validations of the WBFM and noise-reduction options it does."""
+check); plus the package's import boundary, its device default and
+the config-time validations of the mesh, the waterfall codec and the
+WBFM and noise-reduction options."""
 
 import asyncio
 import io
@@ -151,7 +151,10 @@ WIDEBAND = {"sps": 20_000_000, "fft_size": 1 << 20, "audio_sps": 192000,
     # no integer decimation reaches a legal Opus rate
     pytest.param({"audio_compression": "opus", "audio_sps": 44100},
                  "cannot feed Opus", id="extra4-Opus decimation"),
-    pytest.param({"waterfall_compression": "av1"}, "av1", id="extra5-av1"),
+    # AV1 is served; a codec name that is neither zstd nor av1 is not
+    pytest.param({"waterfall_compression": "av2"},
+                 "waterfall_compression must be zstd or av1",
+                 id="extra5-av1"),
     pytest.param({"nr": True, "stereo": True, "audio_sps": 192000},
                  "cannot be combined", id="extra6-nr+stereo"),
     pytest.param({"nr": True, "nr_algo": "nb", "nb_samples": 1},
@@ -161,9 +164,8 @@ WIDEBAND = {"sps": 20_000_000, "fft_size": 1 << 20, "audio_sps": 192000,
                  r"nb_taps must be in \[1, 40\]", id="extra8-nb_taps"),
 ])
 def test_unported_stages_are_rejected_at_config_time(extra, what):
-    """Options still to port (av1) and invalid settings of the ported
-    WBFM and noise-reduction options are refused when the config
-    loads."""
+    """Invalid settings of the WBFM and noise-reduction options and of
+    the waterfall codec are refused when the config loads."""
     with pytest.raises(ValueError, match=what):
         tone_config(**extra)
 
@@ -204,9 +206,15 @@ def test_agc_step_past_shared_memory_is_rejected_at_config_time(hop_batch):
 
 
 def test_mesh_mode_is_rejected_at_config_time():
-    with pytest.raises(ValueError, match="mesh_devices"):
-        config_from_dict({"input": {"sps": SPS, "fft_size": FFT},
-                          "tpu": {"mesh_devices": 4}})
+    """Mesh mode loads; a mesh that does not divide the step's hops or
+    the channel table is refused when the config loads."""
+    cfg = config_from_dict({"input": {"sps": SPS, "fft_size": FFT},
+                            "tpu": {"mesh_devices": 4}})
+    assert cfg.mesh_devices == 4
+    for tpu in ({"hop_batch": 6}, {"max_channels": 30}):
+        with pytest.raises(ValueError, match="mesh_devices=4.*divide"):
+            config_from_dict({"input": {"sps": SPS, "fft_size": FFT},
+                              "tpu": {"mesh_devices": 4, **tpu}})
 
 
 def test_driver_delivers_wbfm_layout_and_rds():
