@@ -54,13 +54,31 @@ Phases, one JSON line each (any failure exits non-zero):
              steps' times, device-busy shares and peak device memory;
              whether libaom loaded and, if so, the mesh's waterfall rows
              through the port's AV1 encoder and decoder, losslessly
+5c. multihost  multi-host server mode on this card: two processes of
+             this script (--multihost-worker) run the CLI's cluster path
+             (multihost.bootstrap, main.build_multihost, MultihostDriver)
+             on cuda:0 (gloo, staged through pinned host memory: NCCL
+             refuses two ranks on one card), one shard of the bench
+             config each, every channel slot a listener and every
+             waterfall slot a client; process 0 reads 6 blocks and ships
+             process 1 its rows and the control block over the TCP link;
+             what each driver hands its serving edge (its channels, the
+             waterfall replica) is held against the single device on the
+             same stream and tables with the mesh phase's tolerances; the
+             ingest's cycle (one dispatch to the next, the link
+             included) beside a block's real time, the drivers' step
+             times, staging times, device-busy shares, peak device
+             memory and the kernels' launches of each process
 6. driver    DSPDriver over an in-memory SampleSource; mesh_driver the
              same in mesh mode over 8 blocks, the USB listener's tone
              checked on the last 4
 7. server    the CLI's build() served on localhost; websocket clients
              on /audio and /waterfall must receive packets (skipped
              only when aiohttp is not installed); mesh_server the same
-             in mesh mode
+             in mesh mode; multihost_server two processes of
+             `python -m phantomsdr_tpu_torch --device cuda --coordinator
+             ... --num-processes 2` on this card, the clients on the
+             follower's port, SIGTERM ending both
 7b. nr       the bench config with nr = true for each nr_algo
              (spectral, lms, notch, nb), every listener opted in, 10
              'views' steps with the nr column off and then on: each
@@ -93,6 +111,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -2058,6 +2077,392 @@ def phase_mesh(cfg, tones, stream, kernels):
     return launches
 
 
+MH_PROCESSES = 2
+MH_STEPS = MESH_STEPS
+MODE_NAMES = ("USB", "LSB", "AM", "FM")     # registry.MODE_CODES order
+
+
+def mh_clients(cfg, tones, channels, waterfalls) -> None:
+    """Fill every slot of the registries' ranges as that many clients
+    would: listener s tuned to row s of bench_tables' channels with its
+    mode; waterfall client w on a view waterfall_size points wide at
+    level 7w mod levels, client 0 over the USB tone.  The same calls on
+    full-range registries make the single device's tables."""
+    (l, r, mid, mode, _), _ = bench_tables(cfg, tones)
+    for _ in range(channels.slot_count):
+        slot = channels.acquire("smoke")
+        s = slot.slot
+        if not channels.retune(slot, int(l[s]), float(mid[s]), int(r[s])):
+            raise AssertionError(f"slot {s}: retune refused")
+        channels.set_mode(slot, MODE_NAMES[mode[s]])
+    for _ in range(waterfalls.slot_count):
+        cid, ws = waterfalls.acquire()
+        lev = (cid * 7) % cfg.downsample_levels
+        span = cfg.waterfall_size << lev
+        lo = ((cid * 131) << lev) % max(cfg.fft_result_size - span, 1)
+        if cid == 0:
+            lo = tones.usb_bin - 500
+        waterfalls.retune(cid, ws, lo, lo + span)
+
+
+def mh_tables(cfg, tones):
+    """The global channel columns and view starts/lengths that
+    mh_clients makes (full-range registries)."""
+    from phantomsdr_tpu_torch.ops.quantize import pyramid_level_offsets
+    from phantomsdr_tpu_torch.runtime.registry import (
+        ChannelRegistry, WaterfallRegistry,
+    )
+
+    channels = ChannelRegistry(cfg)
+    waterfalls = WaterfallRegistry(cfg, pyramid_level_offsets(
+        cfg.fft_result_size, cfg.downsample_levels))
+    mh_clients(cfg, tones, channels, waterfalls)
+    _, tbl, _, _ = channels.snapshot()
+    _, start, length, _ = waterfalls.snapshot()
+    return tbl, start, length
+
+
+class GatedCapture:
+    """The ingest's capture file, read as SampleSource reads a stream:
+    the first block at once (no client has joined, so the cluster skips
+    it and the follower's clients ride upstream after the skip), the
+    rest only after ``ready()``.  So every channel row and view is live,
+    with its full reset, from the first block computed."""
+
+    def __init__(self, path, first_bytes: int, ready):
+        self.file = open(path, "rb")
+        self.first = first_bytes
+        self.ready = ready
+
+    def read(self, n: int) -> bytes:
+        if self.first <= 0 and self.ready is not None:
+            self.ready()
+            self.ready = None
+        data = self.file.read(n if self.first <= 0 else min(n, self.first))
+        self.first -= len(data)
+        return data
+
+    def close(self):
+        self.file.close()
+
+
+def join_after_followers(cfg, tones, server) -> None:
+    """Ingest: wait until every follower's listeners and waterfall
+    clients are in the global tables, then fill this host's ranges."""
+    ch, wf = server.channels, server.waterfalls
+    others = np.ones(cfg.max_channels, bool)
+    others[ch.slot_offset:ch.slot_offset + ch.slot_count] = False
+    deadline = time.monotonic() + 120
+    while (ch.remote_count < others.sum()
+           or not (wf.snapshot()[2][others] > 0).all()):
+        if time.monotonic() > deadline:
+            raise RuntimeError("the followers' clients never arrived")
+        time.sleep(0.01)
+    mh_clients(cfg, tones, ch, wf)
+
+
+def mh_worker(pid: int, workdir: str, coord: int, link_port: int) -> int:
+    """One process of the multihost phase (``--multihost-worker``): the
+    CLI's cluster path on cuda:0 -- ``bootstrap``, then
+    ``main.build_multihost`` -- with its registry ranges filled by
+    mh_clients (the follower's before the stream starts, the ingest's
+    as GatedCapture lets the first computed block through), whose
+    MultihostDriver serves the stream in ``workdir`` to its end
+    (process 0 reads it and ships process 1 its rows and the control
+    block over the link).  What the driver hands the serving edge each
+    step, with the time, the staging seconds and the kernels' launches
+    at that moment, goes to ``workdir``; then one step on zero rows is
+    profiled on both processes."""
+    import torch
+    import torch.distributed as dist
+
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.main import build_multihost
+    from phantomsdr_tpu_torch.ops.cuda import agc, pll, waterfall
+    from phantomsdr_tpu_torch.parallel.multihost import bootstrap
+    from phantomsdr_tpu_torch.pipeline import WaterfallViews, to_device
+
+    out_dir = Path(workdir)
+    cluster = bootstrap(f"127.0.0.1:{coord}", MH_PROCESSES, pid,
+                        device="cuda")
+    cfg = config_from_dict(BENCH_CFG)
+    tones = Tones(cfg)
+    stream = None
+    if pid == 0:
+        stream = GatedCapture(out_dir / "stream.u8",
+                              cfg.hop_batch * 2 * cfg.hop_size,
+                              lambda: join_after_followers(cfg, tones,
+                                                           server))
+    server, driver = build_multihost(cfg, stream, f"127.0.0.1:{link_port}",
+                                     link_port, cluster)
+    if pid != 0:
+        mh_clients(cfg, tones, server.channels, server.waterfalls)
+    kernels = [waterfall.KERNEL, pll.KERNEL, agc.KERNEL]
+    comm = cluster.collectives
+    steps = []
+    serve = server.dispatch_threadsafe
+
+    def dispatch(frame0, audio, pwr, wf, due, wf_meta, audio_meta, rds):
+        # the serving edge's hand-off: keep what it is given
+        steps.append({"t": time.monotonic(), "frame0": frame0,
+                      "audio": audio, "power": pwr, "wf": wf,
+                      "due": list(due), "chan_l": audio_meta[0].tolist(),
+                      "view_r": wf_meta[1].tolist(),
+                      "staging_s": dict(comm.seconds),
+                      "launches": {k.name: k.launches for k in kernels}})
+        serve(frame0, audio, pwr, wf, due, wf_meta, audio_meta, rds)
+
+    server.dispatch_threadsafe = dispatch
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    driver.start()
+    m = driver.metrics
+    deadline = time.monotonic() + 240
+    while not (m.eof or m.device_errors) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if not m.eof or m.device_errors or len(steps) != MH_STEPS:
+        driver.stop()
+        print(f"multihost worker {pid}: eof {m.eof}, {len(steps)} steps, "
+              f"device errors {m.device_errors} {m.last_device_error}",
+              flush=True)
+        return 1
+    peak = torch.cuda.max_memory_allocated()
+    # the device work of one step alone, on both processes at once (its
+    # collectives pair up); the follower reaches it only after the
+    # ingest's eof, so stop() below closes idle links
+    rt, sp = driver.rt, driver.rt.sp
+    tbl, start, length = mh_tables(cfg, tones)
+    table = sp.channels_from_numpy(*tbl[:5], am_env=tbl[7], rds=tbl[6],
+                                   nr=tbl[5])
+    views = WaterfallViews(start=to_device(start, torch.int32, sp.device),
+                           length=to_device(length, torch.int32, sp.device))
+    zrows = np.zeros((len(rt.local_shards), sp.raw_shard_len), np.uint8)
+    idx, _ = sp.due_layout(0)
+    state = sp.init_state()
+    split = split_device_us(lambda: sp.step(state, rt.global_raw(zrows),
+                                            table, views, "views",
+                                            due_idx=idx))
+    driver.stop()
+    if stream is not None:
+        stream.close()
+    dist.destroy_process_group()
+    np.save(out_dir / f"audio{pid}.npy", np.stack([s["audio"]
+                                                   for s in steps]))
+    np.save(out_dir / f"power{pid}.npy", np.stack([s["power"]
+                                                   for s in steps]))
+    wf = [s["wf"] for s in steps if s["wf"] is not None]
+    np.save(out_dir / f"wf{pid}.npy", np.concatenate(wf))
+    for s in steps:
+        del s["audio"], s["power"], s["wf"]
+    (out_dir / f"result{pid}.json").write_text(json.dumps({
+        "process": pid, "backend": cluster.backend, "staged": comm.staged,
+        "chan_offset": rt.chan_offset, "chan_count": rt.chan_count,
+        "local_shards": rt.local_shards, "steps": steps,
+        "driver_step_ms": [x * 1e3 for x in m.step_seconds],
+        "metrics": m.snapshot(cfg), "device_split": split,
+        "peak_device_bytes": peak}))
+    return 0
+
+
+def mh_reference(cfg, tones, stream, frame0: int):
+    """The single device on the cluster's stream and tables: HopPipeline
+    from a zero halo (SampleSource's) and the hop parity of ``frame0``,
+    the first computed block's, over the same MH_STEPS blocks with every
+    row and view of mh_tables live from the first.  Returns each step's
+    (audio, power, waterfall rows of its due positions)."""
+    import torch
+
+    from phantomsdr_tpu_torch.pipeline import (
+        HopPipeline, WaterfallViews, channels_from_numpy, to_device,
+        waterfall_due_positions,
+    )
+    from phantomsdr_tpu_torch.runtime.registry import RESET_FULL
+
+    pipe = HopPipeline(cfg, device="cuda")
+    tbl, start, length = mh_tables(cfg, tones)
+    table = channels_from_numpy(*tbl[:5], am_env=tbl[7], rds=tbl[6],
+                                nr=tbl[5], device="cuda")
+    views = WaterfallViews(start=to_device(start, torch.int32, "cuda"),
+                           length=to_device(length, torch.int32, "cuda"))
+    reset = to_device(np.full(cfg.max_channels, RESET_FULL, np.int32),
+                      torch.int32, "cuda")
+    wph = pipe.wire_per_hop
+    blk = cfg.hop_batch * wph
+    raw = torch.cat([torch.zeros(wph, dtype=stream.dtype,
+                                 device=stream.device),
+                     stream[:MH_STEPS * blk]])
+    state = pipe.init_state(frame0)
+    out = []
+    for s in range(MH_STEPS):
+        f0 = frame0 + s * cfg.hop_batch
+        due = waterfall_due_positions(cfg, f0)
+        state, o = pipe.step(state, raw[s * blk: s * blk + blk + wph],
+                             table, views, "views",
+                             reset=reset if s == 0 else None,
+                             due_idx=pipe.default_due_idx(f0))
+        out.append((o.audio.cpu().numpy(), o.avg_power.cpu().numpy(),
+                    o.wf[:len(due)].cpu().numpy()))
+    return out, tbl
+
+
+def phase_multihost(cfg, tones, stream, kernels):
+    """Multi-host server mode on this card: MH_PROCESSES processes of
+    ``python3 chip_smoke.py --multihost-worker`` run the CLI's cluster
+    path (bootstrap, build_multihost, MultihostDriver) on cuda:0, one
+    shard each (they share the card, so gloo staged through pinned host
+    memory), every channel slot a listener and every waterfall slot a
+    client, over MH_STEPS blocks of the bench stream to its end.  Each
+    host's channels and its waterfall replica are held against the
+    single device on the same stream and tables (mh_reference) with the
+    mesh phase's tolerances; each step's table must be the clients'.  The ingest's cycle -- one dispatch to the
+    next: block read, ack barrier, control block, rows over the link,
+    step -- is the cluster's time a step, beside the driver's step time
+    and the real time of a block.  Returns each process's launches of
+    ``kernels`` in the steps after the first."""
+    import shutil
+
+    from phantomsdr_tpu_torch.pipeline import waterfall_due_positions
+    from phantomsdr_tpu_torch.runtime.codecs import _load_hostlib
+
+    _load_hostlib()     # built here once, not by both processes at once
+    workdir = Path(__file__).resolve().parent / "build" / "multihost" \
+        / "chip_smoke"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    blk = cfg.hop_batch * 2 * cfg.hop_size
+    # a block that no client hears (the cluster skips it), then MH_STEPS
+    with open(workdir / "stream.u8", "wb") as f:
+        f.write(bytes(blk))
+        stream[:MH_STEPS * blk].cpu().numpy().tofile(f)
+    coord, link = free_ports(2)
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--multihost-worker", str(pid),
+         str(workdir), str(coord), str(link)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(MH_PROCESSES)]
+    logs, failed = wait_all(procs, 300)
+    if failed:
+        raise AssertionError(f"multihost: {failed}\n"
+                             + "\n".join(x[-3000:] for x in logs))
+    res = [json.loads((workdir / f"result{pid}.json").read_text())
+           for pid in range(MH_PROCESSES)]
+    ref, tbl = mh_reference(cfg, tones, stream, cfg.hop_batch)
+    err, wf0 = 0, None
+    for r in res:
+        pid, o, c = r["process"], r["chan_offset"], r["chan_count"]
+        a = np.load(workdir / f"audio{pid}.npy")
+        p = np.load(workdir / f"power{pid}.npy")
+        w = np.load(workdir / f"wf{pid}.npy")
+        wf0 = w if wf0 is None else wf0
+        if not np.array_equal(w, wf0):
+            raise AssertionError("multihost: waterfall replicas differ")
+        rows = 0
+        for s, ((a1, p1, w1), rec) in enumerate(zip(ref, r["steps"])):
+            f0 = (s + 1) * cfg.hop_batch
+            if rec["frame0"] != f0 \
+                    or rec["due"] != waterfall_due_positions(cfg, f0) \
+                    or rec["chan_l"] != tbl[0].tolist() \
+                    or 0 in rec["view_r"]:
+                raise AssertionError(
+                    f"multihost process {pid} step {s}: frame0 "
+                    f"{rec['frame0']}, due rows or tables not the clients'")
+            e = int(np.abs(a[s].astype(int)
+                           - a1[:, o:o + c].astype(int)).max())
+            err = max(err, e)
+            if e > 4:
+                raise AssertionError(f"multihost process {pid} step {s}: "
+                                     f"int16 audio off by {e}")
+            np.testing.assert_allclose(
+                p[s], p1[:, o:o + c], rtol=2e-4, atol=1e-12,
+                err_msg=f"multihost process {pid} step {s}: power")
+            d = np.abs(w[rows:rows + len(w1)].astype(int) - w1.astype(int))
+            rows += len(w1)
+            if d.size and (d.max() > 1 or (d > 0).mean() >= 1e-3):
+                raise AssertionError(
+                    f"multihost process {pid} step {s}: waterfall rows "
+                    f"differ (max {d.max()}, share {(d > 0).mean()})")
+        if rows != len(w):
+            raise AssertionError(f"multihost process {pid}: {len(w)} "
+                                 f"waterfall rows, {rows} due")
+    if int(np.abs(ref[-1][0]).max()) < 1000:
+        raise AssertionError("multihost: the compared audio is silent")
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    def per_process(fn):
+        return {r["process"]: fn(r) for r in res}
+
+    def steps_after_first(r, key):
+        a, b = r["steps"][0][key], r["steps"][-1][key]
+        return {k: b[k] - a[k] for k in a}
+
+    launches = per_process(lambda r: steps_after_first(r, "launches"))
+    for pid, n in launches.items():
+        if min(n.get(k.name, 0) for k in kernels) <= 0:
+            raise AssertionError(f"multihost process {pid}: a kernel was "
+                                 f"not launched: {n}")
+    t = [s["t"] for s in res[0]["steps"]]
+    cycle_ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    staging = per_process(lambda r: [
+        {k: (b["staging_s"][k] - a["staging_s"][k]) * 1e3
+         for k in a["staging_s"]}
+        for a, b in zip(r["steps"], r["steps"][1:])])
+    block_s = cfg.hop_batch * cfg.hop_size / cfg.sps
+    cycle_med = float(np.median(cycle_ms))
+    emit({"phase": "multihost", "processes": MH_PROCESSES,
+          "device": "cuda:0 shared", "backend": res[0]["backend"],
+          "staged": res[0]["staged"], "steps": MH_STEPS,
+          "audio_max_abs_int16": err,
+          "ingest_cycle_ms": cycle_ms, "ingest_cycle_ms_median": cycle_med,
+          "real_time_ms_per_block": block_s * 1e3,
+          "real_time_share": cycle_med / (block_s * 1e3),
+          "driver_step_ms": per_process(lambda r: r["driver_step_ms"]),
+          "driver_step_ms_p50": per_process(
+              lambda r: r["metrics"]["step_ms_p50"]),
+          "staging_ms": staging,
+          "staging_ms_median": {
+              pid: {k: float(np.median([x[k] for x in v])) for k in v[0]}
+              for pid, v in staging.items()},
+          "device_split": per_process(lambda r: r["device_split"]),
+          "device_busy_share_of_cycle": per_process(
+              lambda r: r["device_split"]["total_us"] / 1e3 / cycle_med),
+          "peak_device_bytes": per_process(lambda r: r["peak_device_bytes"]),
+          "launches_after_first_step": launches})
+    return launches
+
+
+def free_ports(k: int) -> list[int]:
+    """``k`` distinct free TCP ports on localhost."""
+    socks = [socket.socket() for _ in range(k)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def wait_all(procs, timeout: float):
+    """Each process's output and the failures (a non-zero exit, or no
+    exit within ``timeout`` seconds in all, which kills them all)."""
+    logs, failed = [], []
+    deadline = time.monotonic() + timeout
+    for pid, p in enumerate(procs):
+        try:
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(),
+                                               1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+            failed.append(f"process {pid} timed out")
+        logs.append(out or "")
+        if p.returncode != 0:
+            failed.append(f"process {pid} exited {p.returncode}")
+    return logs, failed
+
+
 def phase_driver(cfg, tones, host_bytes, mesh=None, tone_from=None):
     """DSPDriver over an in-memory capture with the USB tone's listener
     and one waterfall client (on ``mesh`` in mesh mode); with
@@ -2184,12 +2589,132 @@ def phase_server(cfg, tones, host_bytes, mesh=None):
           "device_errors": driver.metrics.device_errors})
 
 
+def toml_text(cfg: dict) -> str:
+    """``cfg`` (BENCH_CFG's form: tables of scalars and sub-tables) as
+    the text of a config file."""
+    lines = []
+
+    def table(name, d):
+        lines.append(f"[{name}]")
+        subs = [(f"{name}.{k}", v) for k, v in d.items()
+                if isinstance(v, dict)]
+        lines.extend(f"{k} = {json.dumps(v)}" for k, v in d.items()
+                     if not isinstance(v, dict))
+        lines.append("")
+        for sub in subs:
+            table(*sub)
+
+    for name, d in cfg.items():
+        table(name, d)
+    return "\n".join(lines)
+
+
+def http_json(port: int, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=5) as r:
+        return json.loads(r.read())
+
+
+def phase_multihost_server(tones, host_bytes: bytes):
+    """The CLI as a cluster on this card: MH_PROCESSES processes of
+    ``python -m phantomsdr_tpu_torch --device cuda --coordinator ...
+    --num-processes 2 --process-id i`` serve the bench config from a
+    looped capture; websocket clients on the follower's /audio (its own
+    slot, tuned to the USB tone) and /waterfall must receive packets,
+    /metrics on every process must show no device error, and SIGTERM
+    must end every process within 30 s (skipped only when aiohttp is
+    not installed)."""
+    import shutil
+
+    try:
+        import aiohttp  # noqa: F401
+    except ImportError:
+        emit({"multihost_server_phase": "skipped: aiohttp not installed"})
+        return
+    workdir = Path(__file__).resolve().parent / "build" / "multihost" \
+        / "chip_smoke_cli"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    (workdir / "capture.u8").write_bytes(host_bytes)
+    coord, link, *ports = free_ports(2 + MH_PROCESSES)
+    procs = []
+    for pid, port in enumerate(ports):
+        conf = workdir / f"config{pid}.toml"
+        conf.write_text(toml_text({"server": {"port": port}, **BENCH_CFG}))
+        role = (["--link-port", str(link)] if pid == 0
+                else ["--link-addr", f"127.0.0.1:{link}"])
+        with open(workdir / f"p{pid}.log", "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "phantomsdr_tpu_torch", "-c",
+                 str(conf), "--device", "cuda", "--coordinator",
+                 f"127.0.0.1:{coord}", "--num-processes",
+                 str(MH_PROCESSES), "--process-id", str(pid),
+                 "--input-file", str(workdir / "capture.u8"), "--loop"]
+                + role, stdout=log, stderr=subprocess.STDOUT,
+                stdin=subprocess.DEVNULL,
+                cwd=Path(__file__).resolve().parent))
+
+    def logs():
+        return "\n".join((workdir / f"p{i}.log").read_text(errors="replace")[-3000:]
+                         for i in range(MH_PROCESSES))
+
+    try:
+        deadline = time.monotonic() + 240
+        up = set()
+        while len(up) < MH_PROCESSES:
+            if time.monotonic() > deadline or any(
+                    p.poll() is not None for p in procs):
+                raise AssertionError(f"multihost_server: not serving "
+                                     f"({sorted(up)} up)\n{logs()}")
+            for pid, port in enumerate(ports):
+                try:
+                    http_json(port, "/metrics")
+                    up.add(pid)
+                except OSError:
+                    pass
+            time.sleep(0.5)
+        res = asyncio.run(_server_clients(ports[1], tones))
+        metrics = {pid: http_json(port, "/metrics")
+                   for pid, port in enumerate(ports)}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        ended = []
+        for p in procs:
+            try:
+                ended.append(p.wait(timeout=30))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                ended.append(f"killed: {p.wait()}")
+    if res["audio_packets"] < 3 or res["waterfall_packets"] < 2 \
+            or any(m["device_errors"] for m in metrics.values()) \
+            or not all(isinstance(rc, int) for rc in ended):
+        raise AssertionError(f"multihost_server: {res}, {metrics}, "
+                             f"exits {ended}\n{logs()}")
+    backend = [ln for ln in logs().splitlines()
+               if ln.startswith("multihost: process")]
+    shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "multihost_server", "processes": MH_PROCESSES,
+          "follower_port_clients": res, "bootstrap": backend,
+          "exit_codes_after_sigterm": ended,
+          "metrics": {pid: {k: m[k] for k in
+                            ("frames", "idle_frames", "step_ms_p50",
+                             "device_errors", "eof")}
+                      for pid, m in metrics.items()}})
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        pid, workdir, coord, link_port = sys.argv[2:6]
+        return mh_worker(int(pid), workdir, int(coord), int(link_port))
     from phantomsdr_tpu_torch.config import config_from_dict
     from phantomsdr_tpu_torch.ops.cuda import (
         agc, anr, deemph, nb, nr, pilot, pll, waterfall,
@@ -2220,6 +2745,8 @@ def main() -> int:
                                  "tpu": {**BENCH_CFG["tpu"],
                                          "mesh_devices": 4}})
     mesh_launches = phase_mesh(mesh_cfg, tones, stream, main_kernels)
+    # multi-host server mode: two processes sharing this card
+    mh_launches = phase_multihost(cfg, tones, stream, main_kernels)
     host_bytes = stream[:4 * 2 * blk].cpu().numpy().tobytes()
     mesh_bytes = stream[:8 * 2 * blk].cpu().numpy().tobytes()
     del stream
@@ -2228,6 +2755,7 @@ def main() -> int:
     phase_driver(mesh_cfg, tones, mesh_bytes, mesh=["cuda:0"] * 4,
                  tone_from=4)
     phase_server(mesh_cfg, tones, host_bytes, mesh=["cuda:0"] * 4)
+    phase_multihost_server(tones, host_bytes)
     nr_launches = phase_nr(kernels)
     wbfm_launches = phase_wbfm(kernels)
     rds_launches = phase_rds(kernels)
@@ -2253,6 +2781,8 @@ def main() -> int:
         row["launches_by_path"] = {
             "main": launches.get(k.name, 0),
             "mesh": mesh_launches.get(k.name, 0),
+            **{f"multihost p{p}": n.get(k.name, 0)
+               for p, n in mh_launches.items()},
             "wbfm": wbfm_launches[k.name],
             "rds": rds_launches[k.name],
             **{f"nr {a}": nr_launches[a][k.name] for a in NR_ALGOS}}

@@ -6,7 +6,9 @@ for the configured wire format, start the DSP driver and the serving
 edge, install SIGINT shutdown.  Single process, on ``--device cuda``
 (the default) or ``--device cpu``; with ``[tpu] mesh_devices = N`` the
 server runs as a mesh of N shards: on N cards, or with ``--device cpu``
-on N CPU shards.
+on N CPU shards.  With ``--num-processes N`` it is one process of an
+N-process cluster (``parallel.multihost``): its shards are its visible
+cards, or ``--cpu-devices`` CPU shards with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import sys
 from aiohttp import web
 
 from .config import load_config
+from .parallel.multihost import DEFAULT_LINK_PORT
 from .runtime.driver import DSPDriver, SampleSource
 from .runtime.server import SpectrumServer
 
@@ -73,6 +76,38 @@ def build(cfg, stream, loop_file=False, throttle=0.0, device="cuda",
     return server, driver
 
 
+def build_multihost(cfg, stream, link_addr, link_port, cluster,
+                    loop_file=False, throttle=0.0):
+    """Multi-host cluster build (``cluster``: ``multihost.bootstrap``'s):
+    this process serves the channel slots living on its shards; process
+    0 additionally ingests samples and distributes rows + control."""
+    if cfg.audio_compression == "flac":
+        from .runtime.codecs import _load_hostlib
+
+        _load_hostlib()
+    from .ops.quantize import pyramid_level_offsets
+    from .parallel.multihost import MultihostDriver, MultihostRuntime
+    from .runtime.registry import ChannelRegistry, WaterfallRegistry
+
+    rt = MultihostRuntime(cfg, cluster)
+    channels = ChannelRegistry(cfg, slot_offset=rt.chan_offset,
+                               slot_count=rt.chan_count)
+    waterfalls = WaterfallRegistry(
+        cfg, pyramid_level_offsets(cfg.fft_result_size,
+                                   cfg.downsample_levels),
+        slot_offset=rt.chan_offset, slot_count=rt.chan_count)
+    server = SpectrumServer(cfg, channels, waterfalls,
+                            chan_offset=rt.chan_offset)
+    source = None
+    if rt.process_id == 0:
+        source = SampleSource(cfg, stream, loop_file=loop_file,
+                              throttle_sps=throttle, include_halo=False)
+    driver = MultihostDriver(cfg, rt, source, server,
+                             link_addr=link_addr, link_port=link_port)
+    server.driver = driver
+    return server, driver
+
+
 def main(argv=None):
     # kill -USR1 <pid> dumps all thread stacks to stderr (debugging aid)
     faulthandler.register(signal.SIGUSR1, all_threads=True)
@@ -89,17 +124,50 @@ def main(argv=None):
                     help="compute device (=cuda); cpu runs the plain "
                          "PyTorch versions of the kernels.  With [tpu] "
                          "mesh_devices = N: N cards, or N CPU shards")
+    ap.add_argument("--cpu-devices", type=int, default=0,
+                    help="cluster mode with --device cpu: N CPU shards "
+                         "in this process (=1); a single process takes "
+                         "its shard count from [tpu] mesh_devices")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 for a multi-host "
+                         "cluster (torch.distributed's tcp:// rendezvous)")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--link-port", type=int, default=DEFAULT_LINK_PORT,
+                    help="ingest host's TCP port for the raw-row feed")
+    ap.add_argument("--link-addr", default=None,
+                    help="followers: ingest host's host:link-port "
+                         "(default 127.0.0.1:<link-port>)")
     args = ap.parse_args(argv)
+    if args.num_processes > 1 and not args.coordinator:
+        ap.error("--num-processes > 1 needs --coordinator host:port")
+    if args.cpu_devices and (args.num_processes <= 1
+                             or args.device != "cpu"):
+        ap.error("--cpu-devices applies to a cluster with --device cpu")
 
+    cluster = None
+    if args.num_processes > 1:
+        # one process per host; before any other CUDA work
+        from .parallel.multihost import bootstrap
+
+        cluster = bootstrap(args.coordinator, args.num_processes,
+                            args.process_id, device=args.device,
+                            cpu_devices=args.cpu_devices)
     cfg = load_config(args.config)
     if args.input_file:
         stream = open(args.input_file, "rb")
     else:
         stream = sys.stdin.buffer
 
-    server, driver = build(cfg, stream, loop_file=args.loop,
-                           throttle=cfg.sps if args.throttle else 0.0,
-                           device=args.device)
+    throttle = cfg.sps if args.throttle else 0.0
+    if cluster is not None:
+        server, driver = build_multihost(cfg, stream, args.link_addr,
+                                         args.link_port, cluster,
+                                         loop_file=args.loop,
+                                         throttle=throttle)
+    else:
+        server, driver = build(cfg, stream, loop_file=args.loop,
+                               throttle=throttle, device=args.device)
     driver.start()
 
     async def _run():

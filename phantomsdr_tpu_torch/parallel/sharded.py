@@ -28,6 +28,12 @@ its own segment; the segments of consecutive shards on one device form
 one packed buffer, and the host concatenation of the buffers is the
 JAX package's per-shard layout -- parse it with
 ``unpack_outputs_sharded``, not ``pipeline.unpack_outputs``.
+
+In a cluster (``parallel.multihost``) each process holds a contiguous
+run of the mesh's shards: its pipeline is given its own devices and
+the cross-process collectives (``group``), and holds the rank's run of
+global shard indices.  It steps only those shards; the halo's hop
+between processes and both gathers go over the group.
 """
 
 from __future__ import annotations
@@ -46,23 +52,25 @@ from ..pipeline import (
     init_audio_state, spectra_from_raw, to_device, waterfall_due_positions,
     waterfall_from_spectra,
 )
-from .collectives import all_gather, ring_permute
+from .collectives import CrossProcess, all_gather, ring_permute
 
 
 class ShardedHopState(NamedTuple):
     frame: int                     # global hop counter (only its parity
     #                                is read)
     audio: tuple[AudioState, ...]  # shard i's channel carries, on its
-    #                                device
+    #                                device (this process's shards)
     halo: torch.Tensor             # [wire_per_hop] the previous step's
-    #                                last hop, on shard 0's device
+    #                                last hop, on shard 0's device (read
+    #                                only by the process holding shard 0)
 
 
 class ShardedHopOutputs(NamedTuple):
     """Per-shard outputs (lists in shard order, each on its shard's
-    device).  audio, avg_power and rds are the shard's channel rows over
-    all hops; wf its due rows' client views (with ``gather_wf`` every
-    shard's, gathered); pyramid its hops' pyramids ('full' mode)."""
+    device; in a cluster this process's shards).  audio, avg_power and
+    rds are the shard's channel rows over all hops; wf its due rows'
+    client views (with ``gather_wf`` every shard's, gathered); pyramid
+    its hops' pyramids ('full' mode)."""
 
     audio: list[torch.Tensor]      # [B, C/n, nch*half] or [C/n, la]
     avg_power: list[torch.Tensor]  # [B, C/n] f32
@@ -118,13 +126,25 @@ class ShardedHopPipeline:
 
     gather_wf=True all-gathers the waterfall view rows, so every device
     holds every shard's due rows, and emits no packed buffer (the rows,
-    audio and power are read from their own tensors)."""
+    audio and power are read from their own tensors).
 
-    def __init__(self, cfg: ServerConfig, mesh: list, gather_wf: bool = False):
+    In a cluster, ``mesh`` is this process's devices and ``group`` a
+    ``CrossProcess``; the devices hold the global shards ``[rank *
+    len(mesh), (rank + 1) * len(mesh))`` and ``n`` is the global shard
+    count.  ``step`` then takes raw rows, channel tables
+    and resets for the local shards only, while ``due_layout``,
+    ``due_row_selector`` and ``channels_from_numpy`` take the global
+    ones."""
+
+    def __init__(self, cfg: ServerConfig, mesh: list, gather_wf: bool = False,
+                 group: CrossProcess | None = None):
         self.cfg = cfg
         self.devices = [torch.device(d) for d in mesh]
         self.gather_wf = gather_wf
-        self.n = len(self.devices)
+        self.group = group
+        self.n = len(self.devices) * (group.size if group else 1)
+        first = group.rank * len(self.devices) if group else 0
+        self.shards = range(first, first + len(self.devices))
         if cfg.hop_batch % self.n:
             raise ValueError("hop_batch must divide evenly over the mesh")
         if cfg.max_channels % self.n:
@@ -147,6 +167,7 @@ class ShardedHopPipeline:
         # single time shard can hold (the host maps global due positions
         # to (shard, local) and pads; see due_layout)
         self.due_cap_local = max(1, -(-self.hops_per_shard // cfg.skip_num))
+        self.raw_shard_len = self.hops_per_shard * self.wire_per_hop
         self.halo_dtype = torch.from_numpy(
             np.zeros(0, convert.device_dtype(cfg.input_format))).dtype
 
@@ -164,10 +185,10 @@ class ShardedHopPipeline:
 
     def channels_from_numpy(self, l, r, m_idx, mode, active, am_env=None,
                             rds=None, nr=None) -> list[ChannelTable]:
-        """Each shard's ChannelTable on its device, from the global
-        numpy columns.  Each shard decides from its own rows whether its
-        AM PLL, RDS and noise-reduction stages run, as the JAX package's
-        lax.cond does inside shard_map."""
+        """Each (local) shard's ChannelTable on its device, from the
+        global numpy columns.  Each shard decides from its own rows
+        whether its AM PLL, RDS and noise-reduction stages run, as the
+        JAX package's lax.cond does inside shard_map."""
         c = np.shape(l)[0]
         z = np.zeros(c, bool)
         cols = [np.asarray(x) for x in (l, r, m_idx, mode, active,
@@ -180,7 +201,7 @@ class ShardedHopPipeline:
                                     am_env=cols[5][i * cl:(i + 1) * cl],
                                     rds=cols[6][i * cl:(i + 1) * cl],
                                     nr=cols[7][i * cl:(i + 1) * cl], device=d)
-                for i, d in enumerate(self.devices)]
+                for i, d in zip(self.shards, self.devices)]
 
     def empty_views(self, num: int = 0) -> WaterfallViews:
         c = num or self.n
@@ -188,9 +209,10 @@ class ShardedHopPipeline:
         return WaterfallViews(start=z, length=z)
 
     def _split(self, x, dtype=None) -> list[torch.Tensor]:
-        """A flat [n * k] host array or tensor -> shard i's k entries on
-        its device (one copy per run of shards on one device)."""
-        k = x.shape[0] // self.n
+        """A flat [n_local * k] host array or tensor -> local shard i's
+        k entries on its device (one copy per run of shards on one
+        device)."""
+        k = x.shape[0] // len(self.devices)
         out = []
         for d, first, count in self.runs:
             part = x[first * k:(first + count) * k]
@@ -204,7 +226,9 @@ class ShardedHopPipeline:
     def shard_raw(self, raw_block) -> list[torch.Tensor]:
         """[B * wire_per_hop] contiguous wire samples (NO halo, in
         ``convert.host_preconvert``'s dtype; a host array or a tensor)
-        -> shard i's [(B/n) * wire_per_hop] on its device."""
+        -> shard i's [(B/n) * wire_per_hop] on its device.  In a cluster
+        the block is the local shards' rows, [n_local, raw_shard_len]
+        or flat."""
         if not isinstance(raw_block, torch.Tensor):
             raw_block = np.asarray(raw_block)
         return self._split(raw_block.reshape(-1))
@@ -246,12 +270,14 @@ class ShardedHopPipeline:
         """raw_shards: ``shard_raw``'s per-shard tensors; chans:
         ``channels_from_numpy``'s per-shard tables; views: the global
         view table (replicated to each device); reset: [C] int32
-        RESET_* mask or None; due_idx: [n, due_cap_local] int32 local
-        due positions (``due_layout``; defaults to frame0 = 0's)."""
+        RESET_* mask (in a cluster: the local shards' channels) or
+        None; due_idx: [n, due_cap_local] int32 local due positions of
+        every shard (``due_layout``; defaults to frame0 = 0's)."""
         if waterfall not in WATERFALL_MODES:
             raise ValueError(f"waterfall must be one of {WATERFALL_MODES}")
-        if len(raw_shards) != self.n or len(chans) != self.n:
-            raise ValueError(f"step: {self.n} raw shards and channel "
+        m = len(self.devices)
+        if len(raw_shards) != m or len(chans) != m:
+            raise ValueError(f"step: {m} raw shards and channel "
                              f"tables expected")
         cfg, devs = self.cfg, self.devices
         bl, half = self.hops_per_shard, cfg.audio_fft_size // 2
@@ -263,20 +289,22 @@ class ShardedHopPipeline:
         w = views.start.shape[0]
         resets = (self._split(reset.reshape(-1) if isinstance(
             reset, torch.Tensor) else np.asarray(reset), torch.int32)
-            if reset is not None else [None] * self.n)
+            if reset is not None else [None] * m)
 
         # ---- front half: each shard's hops, framed with the hop before
         # them (shard 0: the carried global tail of the previous step)
-        recv = ring_permute([r[-self.wire_per_hop:] for r in raw_shards])
-        halos = [state.halo] + recv[1:]
-        new_halo = recv[0].clone()
+        recv = self._ring([r[-self.wire_per_hop:] for r in raw_shards])
+        if self.shards[0] == 0:
+            halos, new_halo = [state.halo] + recv[1:], recv[0].clone()
+        else:
+            halos, new_halo = recv, state.halo
         spec = [spectra_from_raw(cfg, self.local[d].window,
                                  torch.cat([halos[i], raw_shards[i]]), bl)
                 for i, d in enumerate(devs)]
 
         pyr = [torch.zeros((bl, 0), dtype=torch.int8, device=d)
                for d in devs]
-        wf = [None] * self.n
+        wf = [None] * m
         if waterfall == "full":
             pyr = [waterfall_from_spectra(
                 cfg, s, torch.arange(bl, dtype=torch.int32, device=d))
@@ -287,16 +315,17 @@ class ShardedHopPipeline:
                 due_idx = self.due_layout()[0]
             if not isinstance(due_idx, torch.Tensor):
                 due_idx = np.asarray(due_idx, np.int32)
-            due = self._split(due_idx.reshape(-1), torch.int32)
+            due = self._split(due_idx[self.shards[0]:self.shards[-1] + 1]
+                              .reshape(-1), torch.int32)
             wf = [gather_waterfall_views(
                 waterfall_from_spectra(cfg, s, di), views_on[d],
                 self.view_cap) for s, di, d in zip(spec, due, devs)]
             if self.gather_wf:
-                wf = all_gather(wf, devs)
+                wf = self._gather(wf)
 
         # ---- every hop's spectrum on every device; each shard
         # demodulates its channel rows into its own packed segment
-        all_spec = all_gather(spec, devs)
+        all_spec = self._gather(spec)
         rows = self.due_cap_local if waterfall == "views" else 0
         seg_rows = 0 if self.gather_wf else rows
         audio_st, segs = [], []
@@ -332,6 +361,32 @@ class ShardedHopPipeline:
                                 audio=tuple(audio_st), halo=new_halo),
                 ShardedHopOutputs(audio=audio16, avg_power=pwr, wf=wf_out,
                                   pyramid=pyr, rds=rds8, packed=packed))
+
+    def _ring(self, tails: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Local shard i's received tail: local shard i-1's, and for the
+        first the tail of the shard before it, over the group in a
+        cluster (the last local shard's tail goes to the next
+        process)."""
+        if self.group is None:
+            return ring_permute(tails)
+        first = self.group.ring(tails[-1])
+        return [first] + [t.to(d, non_blocking=True)
+                          for t, d in zip(tails[:-1], self.devices[1:])]
+
+    def _gather(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Every shard's part, concatenated in global shard order, on each
+        local shard's device (one tensor per distinct device)."""
+        if self.group is None:
+            return all_gather(parts, self.devices)
+        home = self.device
+        mine = (parts[0] if len(parts) == 1
+                else torch.cat([p.to(home, non_blocking=True)
+                                for p in parts]))
+        whole = {home: self.group.all_gather(mine)}
+        for d in self.devices:
+            if d not in whole:
+                whole[d] = whole[home].to(d, non_blocking=True)
+        return [whole[d] for d in self.devices]
 
 
 def unpack_outputs_sharded(packed: np.ndarray, n: int, b: int, c: int,

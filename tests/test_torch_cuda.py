@@ -967,3 +967,84 @@ def test_mesh_step_matches_single_device(dev, cards):
     # (every shard has an AM row)
     assert (waterfall.KERNEL.launches, pll.KERNEL.launches,
             agc.KERNEL.launches) == (3 * (n + 1),) * 3
+
+
+def test_multihost_cluster_over_nccl(dev, tmp_path):
+    """Two processes with a card each (CUDA_VISIBLE_DEVICES) form a
+    cluster over NCCL through tools/torch_multihost_dryrun.py: rows over
+    the TCP link, the halo and the gathers over NCCL, each follower's
+    retune upstream; each host's audio within 4 of the single device
+    on the card, the waterfall replicas identical."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    tool = Path(__file__).resolve().parent.parent / "tools" \
+        / "torch_multihost_dryrun.py"
+    res = subprocess.run(
+        [sys.executable, str(tool), "--device", "cuda", "--out",
+         str(tmp_path), "--timeout", "150"], capture_output=True, text=True,
+        timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "TORCH_MULTIHOST_DRYRUN_OK" in res.stdout, res.stdout
+    assert res.stdout.count("over nccl") == 2, res.stdout
+
+
+def test_multihost_cli_over_nccl(dev, tmp_path):
+    """Two processes of ``python -m phantomsdr_tpu_torch --device cuda
+    --coordinator ...`` with a card each (CUDA_VISIBLE_DEVICES) serve a
+    cluster over NCCL through the CLI and MultihostDriver: an AM
+    listener on the follower's own slot and a waterfall client there
+    receive packets, neither process reports a device error, both
+    printed the NCCL choice, and SIGTERM ends both."""
+    import asyncio
+    import json
+
+    from tests.test_torch_multihost_faults import (
+        logs, spawn_cluster, stop, wait_metrics,
+    )
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    procs, ports, hop, metrics = spawn_cluster(tmp_path, 2, device="cuda")
+    try:
+        for which in range(2):
+            wait_metrics(procs, metrics, lambda m: m["frames"] >= 3 * hop,
+                         180, tmp_path, which=which)
+
+        async def listen(port):
+            import aiohttp
+
+            got = {"audio": 0, "waterfall": 0}
+            async with aiohttp.ClientSession() as s:
+                url = f"http://127.0.0.1:{port}"
+                async with s.ws_connect(url + "/audio",
+                                        max_msg_size=1 << 22) as ws, \
+                        s.ws_connect(url + "/waterfall",
+                                     max_msg_size=1 << 22) as wf:
+                    mid = json.loads((await ws.receive()).data)[
+                        "fft_result_size"] // 2
+                    await ws.send_str(json.dumps(
+                        {"cmd": "window", "l": mid - 32, "m": mid,
+                         "r": mid + 32}))
+                    await ws.send_str(json.dumps(
+                        {"cmd": "demodulation", "demodulation": "AM"}))
+                    for name, sock, want in (("audio", ws, 3),
+                                             ("waterfall", wf, 2)):
+                        while got[name] < want:
+                            msg = await sock.receive(timeout=60)
+                            if msg.type == aiohttp.WSMsgType.BINARY:
+                                got[name] += 1
+            return got
+
+        got = asyncio.run(listen(ports[1]))
+        assert got == {"audio": 3, "waterfall": 2}, got
+        for which in range(2):
+            assert metrics(which)["device_errors"] == 0, metrics(which)
+        assert logs(tmp_path, 2).count("backend nccl") == 2, \
+            logs(tmp_path, 2)
+    finally:
+        slow = stop(procs)
+    assert not slow, f"processes {slow} outlived SIGTERM by 10 s"
