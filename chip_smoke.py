@@ -94,6 +94,22 @@ Phases, one JSON line each (any failure exits non-zero):
 9. rds       the soak profile (1.536 MSPS, FFT 131072, stereo + RDS +
              de-emphasis, 128 channels) over an FM capture of an RDS
              MPX: the host decoder must assemble the exact PI and PS
+10. entry    phantomsdr_tpu_torch.entry: entry() on cuda:0 stepped twice
+             against entry(device="cpu") on the same inputs (int16
+             within 4, power rtol 2e-4, waterfall within one step), then
+             dryrun_multichip(4) as 4 shards on this card
+11. profile  tools/torch_profile.py's stage table at the bench config
+             with the opt-in stages: stages, substages, the ingest and
+             packing outside them, the host-issue times, the end-to-end
+             step; each stage must launch its kernels
+12. verify_tone  the tools/verify tone check through the CLI on the card
+             (captures.py, python -m phantomsdr_tpu_torch --device cuda,
+             client.py's tone check for 8 s through the port's decoders,
+             tools/torch_clients.tone_check): the tone's Hz, the
+             waterfall rows on the carrier, the CLI's launches
+13. soak_smoke  tools/torch_soak.py for 60 s on the card with loosened
+             bars: at least 100 audio and 100 waterfall packets, no
+             error, the CLI's launches of K-WF, K-PLL and K-AGC
 
 then the kernel table, the card's nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2706,6 +2722,230 @@ def phase_multihost_server(tones, host_bytes: bytes):
                       for pid, m in metrics.items()}})
 
 
+# ------------------------------------------- the entry points and tools
+
+REPO = Path(__file__).resolve().parent
+ENTRY_STEPS = 10    # the example step, then 9 seeded blocks
+
+
+def phase_entry(kernels) -> dict:
+    """``entry.entry()`` on cuda:0 stepped ENTRY_STEPS times (the
+    example arguments, then seeded blocks of a tone and noise) against
+    ``entry(device="cpu")`` on the same inputs, with the small phase's
+    tolerances; then ``entry.dryrun_multichip(4)`` as 4 shards on this
+    card.  Returns the kernels' launches in the card's steps."""
+    import torch
+
+    from phantomsdr_tpu_torch.entry import dryrun_multichip, entry, small_cfg
+
+    cfg = small_cfg()
+    n = (cfg.hop_batch + 1) * cfg.hop_size * 2
+    rng = np.random.default_rng(SEED)
+    t = np.arange(n)
+    seeded = [(rng.integers(-3000, 3000, n)
+               + 8000 * np.sin(0.13 * (t + s * n))).astype(np.int16)
+              for s in range(ENTRY_STEPS - 1)]
+    got = {}
+    launches = {}
+    for dev in ("cuda", "cpu"):
+        fn, (state, raw, table, views, reset, due) = entry(device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+        outs = []
+        # the example block, then seeded blocks past the AGC's 200 ms
+        # look-ahead (5 steps), so that the audio is not silence
+        for blk in [raw] + [torch.from_numpy(x).to(dev) for x in seeded]:
+            state, out = fn(state, blk, table, views, reset, due)
+            outs.append((out.audio.cpu().numpy().astype(int),
+                         out.avg_power.cpu().numpy(),
+                         out.wf.cpu().numpy().astype(int)))
+        if dev == "cuda":
+            launches = {k.name: k.launches for k in kernels}
+        got[dev] = outs
+    a_err = max(int(np.abs(c[0] - p[0]).max())
+                for c, p in zip(got["cuda"], got["cpu"]))
+    p_rel = max(float(np.max(np.abs(c[1] - p[1])
+                             / np.maximum(np.abs(p[1]), 1e-30)))
+                for c, p in zip(got["cuda"], got["cpu"]) if p[1].any())
+    w_err = max(int(np.abs(c[2] - p[2]).max())
+                for c, p in zip(got["cuda"], got["cpu"]))
+    peak = int(max(np.abs(p[0]).max() for p in got["cpu"]))
+    if a_err > 4 or peak < 1000 or p_rel > 2e-4 or w_err > 1 \
+            or min(launches.values()) <= 0:
+        raise AssertionError(f"entry: card vs CPU audio {a_err} (peak "
+                             f"{peak}), power "
+                             f"rtol {p_rel}, waterfall {w_err}, launches "
+                             f"{launches}")
+    d = dryrun_multichip(4, devices=["cuda:0"] * 4)
+    emit({"phase": "entry", "steps": ENTRY_STEPS,
+          "audio_max_abs_int16": a_err, "audio_peak_int16": peak,
+          "power_max_rel": p_rel, "waterfall_max_steps": w_err,
+          "launches": launches,
+          "dryrun_multichip": {
+              "devices": ["cuda:0"] * 4,
+              "audio_shapes": [list(a.shape) for a in d.outputs[1].audio],
+              "wf_rows": [int(w.shape[0]) for w in d.outputs[1].wf]}})
+    return launches
+
+
+# each kernel of a stage, launched inside it (tools/torch_profile.py)
+PROFILE_STAGE_KERNELS = {
+    "waterfall_pyramid": ("waterfall",), "channelizer_demod": ("pll",),
+    "dc_agc": ("agc",), "stereo_decode": ("pilot",), "nr_spectral": ("nr",),
+    "nr_lms": ("anr",), "nb_blanker": ("nb_lpc", "nb_repair"),
+    "rds_downmix": ("pilot",), "stereo_plus_rds_shared": ("pilot",)}
+
+
+def phase_profile() -> dict:
+    """tools/torch_profile.py's stage table at the bench config (2^20,
+    36 hops, 128 channels) with the opt-in stages; the stages' sum and
+    the step must be finite and positive and each stage must launch its
+    kernels.  Returns the launches of every kernel over the stages."""
+    import argparse
+
+    from tools.torch_profile import MAIN_STAGES, OPTIN_STAGES, profile
+
+    p = profile(argparse.Namespace(
+        fft_log2=20, hops=BENCH_CFG["tpu"]["hop_batch"],
+        channels=BENCH_CFG["tpu"]["max_channels"], kbig=32, device="cuda",
+        optin=True, mesh=0, devices=None))
+    total = sum(p["stages_ms"][k] for k in MAIN_STAGES)
+    missing = [(stage, k) for stage, ks in PROFILE_STAGE_KERNELS.items()
+               for k in ks if p["launches_by_stage"][stage].get(k, 0) <= 0]
+    if not (math.isfinite(total) and total > 0
+            and math.isfinite(p["step_ms_e2e_p50"])
+            and p["step_ms_e2e_p50"] > 0 and p["step_device_ms"] > 0
+            and all(p["optin_stages_ms"][k] > 0 for k in OPTIN_STAGES)) \
+            or missing:
+        raise AssertionError(f"profile: stages {p['stages_ms']}, step "
+                             f"{p['step_ms_e2e_p50']}, not launched in "
+                             f"their stage: {missing}")
+    emit({"phase": "profile", **{k: p[k] for k in (
+        "config", "method", "stages_ms", "substages_ms",
+        "outside_stages_ms", "stages_issue_ms", "optin_stages_ms",
+        "optin_stages_issue_ms", "launches_by_stage", "step_launches",
+        "step_ms_e2e_p50", "step_device_ms", "step_issue_ms",
+        "step_split_ms", "views_step_device_ms", "views_due_rows",
+        "device_compute_ms_total",
+        "stages_and_outside_ms", "stages_and_outside_over_step_device",
+        "device_msps_ceiling", "fft_sol")}})
+    out = {}
+    for per in p["launches_by_stage"].values():
+        for k, n in per.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def metrics_launches(port: int) -> dict:
+    return http_json(port, "/metrics")["kernel_launches"]
+
+
+def phase_verify_tone() -> dict:
+    """.claude/skills/verify/SKILL.md recipe 1 on the card: captures.py's
+    tone capture, ``python -m phantomsdr_tpu_torch --device cuda`` on a
+    free port (killed by PID), then tools/verify/client.py's tone check
+    for 8 s through tools/torch_clients.tone_check.  client.py itself is
+    not run here: its FLAC decoder (tests/test_codecs.py) imports the
+    JAX package, and without python-zstandard (absent here) it counts
+    the waterfall rows without checking their peak; tone_check decodes
+    through the port's codecs (the system libzstd, a copy of the
+    from-spec FLAC decoder) and checks both.  The tone's Hz, the
+    waterfall rows on the carrier, and the CLI's kernel launches during
+    the check (its /metrics).  Returns those launches."""
+    import shutil
+
+    from tools.torch_clients import tone_check
+
+    workdir = REPO / "build" / "verify_tone"
+    shutil.rmtree(workdir, ignore_errors=True)
+    port = free_ports(1)[0]
+    subprocess.run([sys.executable, "tools/verify/captures.py", "--variant",
+                    "tone", "--out", str(workdir), "--port", str(port)],
+                   check=True, cwd=REPO, capture_output=True, timeout=120)
+    truth = json.loads((workdir / "truth.json").read_text())
+    log = open(workdir / "server.log", "wb")
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "phantomsdr_tpu_torch", "-c",
+         str(workdir / "config.toml"), "--input-file",
+         str(workdir / "capture.s16"), "--loop", "--throttle", "--device",
+         "cuda"], stdout=log, stderr=subprocess.STDOUT,
+        stdin=subprocess.DEVNULL, cwd=REPO)
+    try:
+        deadline = time.monotonic() + 240
+        while True:
+            try:
+                if http_json(port, "/metrics")["frames"] > 0:
+                    break
+            except OSError:
+                pass
+            if srv.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("verify_tone: the CLI never served\n"
+                                     + (workdir / "server.log").read_text(
+                                         errors="replace")[-3000:])
+            time.sleep(0.5)
+        before = metrics_launches(port)
+        res = asyncio.run(tone_check(f"http://127.0.0.1:{port}", truth,
+                                     8.0))
+        after = http_json(port, "/metrics")
+    finally:
+        srv.terminate()
+        try:
+            srv.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            srv.wait()
+        log.close()
+    launches = {k: n - before.get(k, 0)
+                for k, n in after["kernel_launches"].items()}
+    if after["device_errors"] or min(launches[k] for k in
+                                     ("waterfall", "pll", "agc")) <= 0:
+        raise AssertionError(f"verify_tone: device errors "
+                             f"{after['device_errors']}, launches "
+                             f"{launches}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "verify_tone", "tone_hz": res["tone"]["f_peak_hz"],
+          "want_hz": truth["tone_hz"], **res, "launches": launches,
+          "server_step_ms_p50": after["step_ms_p50"],
+          "device_errors": after["device_errors"]})
+    return launches
+
+
+def phase_soak_smoke() -> dict:
+    """tools/torch_soak.py for 60 s on the card with tests/test_soak.py's
+    loosened bars (no hourly RSS budget, latency within 4x): at least
+    100 audio and 100 waterfall packets, no device, client or decode
+    error, and the CLI's launches of the main path's kernels.  Returns
+    those launches."""
+    import shutil
+
+    workdir = REPO / "build" / "soak_smoke"
+    shutil.rmtree(workdir, ignore_errors=True)
+    res = subprocess.run(
+        [sys.executable, "tools/torch_soak.py", "--secs", "60",
+         "--sample-secs", "10", "--audio", "6", "--wf", "3", "--churn",
+         "20", "--rss-budget-pct", "1e9", "--lat-factor", "4", "--dir",
+         str(workdir)], capture_output=True, text=True, cwd=REPO,
+        timeout=400)
+    try:
+        v = json.loads(res.stdout)
+    except ValueError:
+        v = None
+    launches = (v or {}).get("kernel_launches") or {}
+    if res.returncode != 0 or not v or not v["pass"] \
+            or v["audio_pkts"] < 100 or v["wf_pkts"] < 100 \
+            or v["client_errors"] or v["decode_errors"] \
+            or v["device_errors"] \
+            or min(launches.get(k, 0) for k in ("waterfall", "pll",
+                                                "agc")) <= 0:
+        raise AssertionError(f"soak_smoke: rc {res.returncode}\n"
+                             f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "soak_smoke", **v})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2759,6 +2999,13 @@ def main() -> int:
     nr_launches = phase_nr(kernels)
     wbfm_launches = phase_wbfm(kernels)
     rds_launches = phase_rds(kernels)
+    # the JAX side's entry points and tools, ported: the graft entry
+    # and dryrun, the stage profiler, the tone check and a soak through
+    # the CLI
+    tool_launches = {"entry": phase_entry(main_kernels),
+                     "profile": phase_profile(),
+                     "verify_tone": phase_verify_tone(),
+                     "soak_smoke": phase_soak_smoke()}
 
     # each kernel's launches on its path: the bench-config main phase
     # for K-WF, K-PLL and K-AGC (beside them, the mesh phase's), the
@@ -2785,7 +3032,8 @@ def main() -> int:
                for p, n in mh_launches.items()},
             "wbfm": wbfm_launches[k.name],
             "rds": rds_launches[k.name],
-            **{f"nr {a}": nr_launches[a][k.name] for a in NR_ALGOS}}
+            **{f"nr {a}": nr_launches[a][k.name] for a in NR_ALGOS},
+            **{path: n.get(k.name, 0) for path, n in tool_launches.items()}}
         if len(launchers) > 1:
             row["launches_by_launcher"] = {x.name: counts[x.name]
                                            for x in launchers}

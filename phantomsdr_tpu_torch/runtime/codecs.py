@@ -407,6 +407,16 @@ def _load_zstd():
         lib.ZSTD_compress.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
                                       ctypes.c_char_p, ctypes.c_size_t,
                                       ctypes.c_int]
+        lib.ZSTD_createDStream.restype = ctypes.c_void_p
+        lib.ZSTD_createDStream.argtypes = []
+        lib.ZSTD_freeDStream.restype = ctypes.c_size_t
+        lib.ZSTD_freeDStream.argtypes = [ctypes.c_void_p]
+        lib.ZSTD_decompressStream.restype = ctypes.c_size_t
+        lib.ZSTD_decompressStream.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(_ZstdBuffer),
+            ctypes.POINTER(_ZstdBuffer)]
+        lib.ZSTD_DStreamOutSize.restype = ctypes.c_size_t
+        lib.ZSTD_DStreamOutSize.argtypes = []
         _zstdlib = lib
     return _zstdlib
 
@@ -465,6 +475,42 @@ class ZstdStream:
         if getattr(self, "_cctx", None):
             self._lib.ZSTD_freeCCtx(self._cctx)
             self._cctx = None
+
+
+class ZstdDecompressStream:
+    """The client side of a ``ZstdStream``: one streaming decoder per
+    connection (ZSTD_decompressStream), ``decompress`` returning all the
+    bytes each flushed message completes."""
+
+    def __init__(self):
+        self._lib = _load_zstd()
+        self._dctx = self._lib.ZSTD_createDStream()
+        if not self._dctx:
+            raise MemoryError("ZSTD_createDStream failed")
+        self._cap = self._lib.ZSTD_DStreamOutSize()
+
+    def decompress(self, data: bytes) -> bytes:
+        src = ctypes.create_string_buffer(data, len(data))
+        inb = _ZstdBuffer(ctypes.cast(src, ctypes.c_void_p), len(data), 0)
+        dst = ctypes.create_string_buffer(self._cap)
+        parts = []
+        while True:
+            outb = _ZstdBuffer(ctypes.cast(dst, ctypes.c_void_p), self._cap,
+                               0)
+            ret = self._lib.ZSTD_decompressStream(
+                self._dctx, ctypes.byref(outb), ctypes.byref(inb))
+            if self._lib.ZSTD_isError(ret):
+                raise RuntimeError(f"zstd error {ret}")
+            parts.append(ctypes.string_at(dst, outb.pos))
+            # all input taken and the output not full: nothing is left
+            # buffered inside the decoder for this message
+            if inb.pos == inb.size and outb.pos < self._cap:
+                return b"".join(parts)
+
+    def __del__(self):
+        if getattr(self, "_dctx", None):
+            self._lib.ZSTD_freeDStream(self._dctx)
+            self._dctx = None
 
 
 class DeflateStream:

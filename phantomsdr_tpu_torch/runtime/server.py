@@ -39,6 +39,7 @@ from aiohttp import web, WSMsgType
 from collections import deque
 
 from ..config import ServerConfig
+from ..ops.cuda import all_kernels
 from ..ops.quantize import pyramid_level_offsets
 from . import cbor
 from .codecs import (DeflateStream, FlacEncoder, OpusChunkEncoder,
@@ -573,6 +574,9 @@ class SpectrumServer:
             m["dispatch_ms_p50"] = ds[len(ds) // 2] * 1e3
             m["dispatch_ms_p99"] = ds[min(len(ds) - 1,
                                           int(len(ds) * 0.99))] * 1e3
+        # each hand-written kernel's launches in this process so far (a
+        # port-only field: which kernels a served run went through)
+        m["kernel_launches"] = {k.name: k.launches for k in all_kernels()}
         return web.json_response(m)
 
     def _http_404(self, request: web.Request) -> web.Response:

@@ -210,8 +210,9 @@ def test_gloo_cluster_matches_jax_single_device(tmp_path, nprocs, spp):
     check against the port's single device passes, and each host's
     channel range matches the JAX package's single device."""
     res = subprocess.run(
-        [sys.executable, str(TOOL), "--out", str(tmp_path), "--n-proc",
-         str(nprocs), "--cpu-shards", str(spp)], capture_output=True,
+        [sys.executable, str(TOOL), "--device", "cpu", "--out",
+         str(tmp_path), "--n-proc", str(nprocs), "--cpu-shards", str(spp)],
+        capture_output=True,
         text=True, timeout=240, cwd=REPO,
         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert res.returncode == 0, res.stdout + res.stderr

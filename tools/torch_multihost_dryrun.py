@@ -27,9 +27,10 @@ Each process writes its audio, power and waterfall rows as .npy files to
 --out, with its channel range, so a caller can hold them against another
 reference.  Ports are free ephemeral ones unless given.
 
-Run:  python tools/torch_multihost_dryrun.py              (2 processes)
-      python tools/torch_multihost_dryrun.py --n-proc 3   (1 ingest + 2)
-      python tools/torch_multihost_dryrun.py --device cuda   (a card each)
+Run:  python tools/torch_multihost_dryrun.py --device cpu   (2 processes)
+      python tools/torch_multihost_dryrun.py --device cpu --n-proc 3
+                                                    (1 ingest + 2)
+      python tools/torch_multihost_dryrun.py   (--device cuda: a card each)
       python tools/torch_multihost_dryrun.py --pid N ...  (one process)
 """
 
@@ -369,7 +370,7 @@ def main():
     ap.add_argument("--out", default="build/multihost/dryrun")
     ap.add_argument("--n-proc", type=int, default=2,
                     help="cluster processes (1 ingest + n-1 followers)")
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--cpu-shards", type=int, default=CPU_SHARDS,
                     help="CPU shards per process with --device cpu")
     ap.add_argument("--timeout", type=float, default=300,
