@@ -110,8 +110,31 @@ Phases, one JSON line each (any failure exits non-zero):
 13. soak_smoke  tools/torch_soak.py for 60 s on the card with loosened
              bars: at least 100 audio and 100 waterfall packets, no
              error, the CLI's launches of K-WF, K-PLL and K-AGC
+14. ingest   tools/torch_ingest_bench.py at the bench config's block
+             (36 hops, u8 IQ): the pipe read, the upload (the halo
+             concat, the pinned copy, the copy to the card) and the
+             driver-shaped overlap, which must sustain 35 MSPS
+15. serve_full  the north-star deployment through the CLI: `python -m
+             phantomsdr_tpu_torch --device cuda` on the bench config
+             read from stdin, fed through a pipe at 70 MB/s by
+             tools/torch_clients.PipeFeeder from 4 blocks of the main
+             phase's capture; tools/torch_stress.py's 100 churning audio
+             and 28 waterfall clients (half on deflate, every 10th
+             decoding its stream) for 60 s, and beside them a steady
+             listener on each tone (USB, LSB, AM with the PLL, FM) and
+             a waterfall client on the USB carrier.  It must hold: the
+             feed at >= 69 MB/s with no lag of a block, 35 MSPS within
+             2% from /metrics over the window, no device error, no
+             dropped encode, a dispatch p99 under a block's 539 ms, no
+             client or decode error, each steady listener at >= 0.95 of
+             the packet rate the step cadence implies with its tone at
+             its Hz within 3 Hz, the waterfall peak on the carrier, and
+             K-WF, K-PLL and K-AGC launched in the window; with the
+             server's CPU seconds a second, threads, RSS, device memory,
+             step time, device-busy share and encode queue depth
 
-then the kernel table, the card's nvidia-smi line, and as the last line
+then the whole script's time, the kernel table, the card's nvidia-smi
+line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs one CUDA card and exits non-zero without one.
 """
@@ -2946,9 +2969,388 @@ def phase_soak_smoke() -> dict:
     return launches
 
 
+# --------------------------------- the north-star deployment, served
+
+def phase_ingest() -> dict:
+    """tools/torch_ingest_bench.py on the card at the bench config's
+    block (36 hops of 2^19 IQ pairs, u8): the read, upload and overlap
+    legs and the upload's split.  The overlap leg must sustain 35 MSPS
+    (its meets_target)."""
+    out = REPO / "build" / "ingest" / "INGEST_torch.json"
+    res = subprocess.run(
+        [sys.executable, "tools/torch_ingest_bench.py", "--hop-batch",
+         str(BENCH_CFG["tpu"]["hop_batch"]), "--out", str(out)],
+        capture_output=True, text=True, cwd=REPO, timeout=300)
+    if res.returncode:
+        raise AssertionError(f"ingest: rc {res.returncode}\n"
+                             f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+    v = json.loads(out.read_text())
+    emit({"phase": "ingest", **v})
+    if not v["meets_target"]:
+        raise AssertionError(f"ingest: the overlap leg at "
+                             f"{v['overlap']['msps']} MSPS, under 35")
+    return v
+
+
+SERVE_SECS = 60             # the stress window
+SERVE_WARM_SECS = 10        # the feed's warm-up before the window
+SERVE_STRESS = ["--audio", "100", "--wf", "28", "--churn", "45",
+                "--wf-deflate-frac", "0.5", "--decode-every", "10"]
+SERVE_SETTLE_SECS = 2.0     # steady listeners' audio skipped (the AGC)
+
+
+def proc_stat(pid: int) -> dict:
+    """The process's CPU seconds (user + system), threads and RSS."""
+    import os
+
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    tick = os.sysconf("SC_CLK_TCK")
+    with open(f"/proc/{pid}/status") as f:
+        rss = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    return {"cpu_s": (int(fields[11]) + int(fields[12])) / tick,
+            "threads": int(fields[17]), "rss_kb": rss}
+
+
+async def steady_listener(session, url: str, chan, mode: str, stop, rec):
+    """One listener on a tone's channel in ``mode`` from its session's
+    start: every audio payload with its arrival time into ``rec``."""
+    import aiohttp
+
+    from tools.torch_clients import cbor_decode
+
+    l, r, m = chan
+    async with session.ws_connect(url + "/audio",
+                                  max_msg_size=1 << 22) as ws:
+        json.loads((await ws.receive(timeout=60)).data)
+        await ws.send_str(json.dumps({"cmd": "window", "l": int(l),
+                                      "m": float(m), "r": int(r)}))
+        await ws.send_str(json.dumps({"cmd": "demodulation",
+                                      "demodulation": mode}))
+        while not stop.is_set():
+            try:
+                msg = await ws.receive(timeout=1)
+            except asyncio.TimeoutError:
+                continue
+            if msg.type == aiohttp.WSMsgType.BINARY:
+                rec["pkts"].append((time.monotonic(),
+                                    bytes(cbor_decode(msg.data)["data"])))
+            elif msg.type != aiohttp.WSMsgType.TEXT:
+                rec["closed"] = True
+                return
+
+
+async def steady_waterfall(session, url: str, l: int, width: int, stop,
+                           rec):
+    """One waterfall client on [l, l + width) at full resolution: each
+    row's decoded bytes with its labelled l into ``rec``."""
+    import aiohttp
+
+    from phantomsdr_tpu_torch.runtime.codecs import ZstdDecompressStream
+    from tools.torch_clients import cbor_decode
+
+    dec = ZstdDecompressStream()
+    async with session.ws_connect(url + "/waterfall",
+                                  max_msg_size=1 << 22) as ws:
+        json.loads((await ws.receive(timeout=60)).data)
+        await ws.send_str(json.dumps({"cmd": "window", "l": l,
+                                      "r": l + width}))
+        while not stop.is_set():
+            try:
+                msg = await ws.receive(timeout=1)
+            except asyncio.TimeoutError:
+                continue
+            if msg.type == aiohttp.WSMsgType.BINARY:
+                pkt = cbor_decode(dec.decompress(msg.data))
+                rec["rows"].append((pkt["l"], pkt["r"], np.frombuffer(
+                    bytes(pkt["data"]), np.int8)))
+            elif msg.type != aiohttp.WSMsgType.TEXT:
+                rec["closed"] = True
+                return
+
+
+def flac_samples(payloads: list[bytes]) -> np.ndarray:
+    from tools.torch_clients import decode_flac
+
+    return decode_flac(b"".join(payloads))[1]
+
+
+async def serve_window(port: int, cfg, tones, feeder, srv) -> dict:
+    """The clients of serve_full against the server at ``port``: the
+    four steady tone listeners and the waterfall client, then
+    tools/torch_stress.py in its own process; /metrics, the feeder and
+    the server process read at the window's start and end."""
+    import concurrent.futures
+    import multiprocessing
+
+    import aiohttp
+
+    from tools.torch_clients import loop_lag, percentile
+    from tools.torch_soak import device_mem_mb
+
+    url = f"http://127.0.0.1:{port}"
+    stop = asyncio.Event()
+    lags: list[float] = []
+    recs = [{"pkts": [], "closed": False} for _ in MODE_NAMES]
+    wf_rec = {"rows": [], "closed": False}
+    wf_l = tones.usb_bin - 500
+    samples = []
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0)) as s:
+
+        async def metrics():
+            async with s.get(url + "/metrics") as r:
+                return await r.json()
+
+        tasks = [asyncio.create_task(loop_lag(stop, lags))]
+        tasks += [asyncio.create_task(steady_listener(
+            s, url, tones.chans[i], mode, stop, recs[i]))
+            for i, mode in enumerate(MODE_NAMES)]
+        tasks.append(asyncio.create_task(steady_waterfall(
+            s, url, wf_l, cfg.waterfall_size, stop, wf_rec)))
+        t_feed = time.monotonic()
+        await asyncio.sleep(SERVE_WARM_SECS - 2)
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "tools/torch_stress.py", "--url",
+            f"ws://127.0.0.1:{port}", "--secs", str(SERVE_SECS),
+            *SERVE_STRESS, cwd=REPO, stdout=asyncio.subprocess.PIPE,
+            stderr=asyncio.subprocess.PIPE)
+        stress_err = []
+        while True:      # the stress clients' window starts here
+            line = await asyncio.wait_for(proc.stderr.readline(), 120)
+            if not line or b"clients started" in line:
+                break
+            stress_err.append(line.decode(errors="replace"))
+        await asyncio.sleep(max(t_feed + SERVE_WARM_SECS
+                                - time.monotonic(), 0))
+        feeder.mark()
+        t0 = time.monotonic()
+        m0, p0 = await metrics(), proc_stat(srv.pid)
+        while time.monotonic() - t0 < SERVE_SECS - 0.5:
+            await asyncio.sleep(min(5.0, SERVE_SECS - 0.5
+                                    - (time.monotonic() - t0)))
+            samples.append(await metrics())
+        m1, p1 = await metrics(), proc_stat(srv.pid)
+        t1 = time.monotonic()
+        fed = feeder.stats()
+        dev_mb, dev_read = device_mem_mb(srv.pid)
+        stop.set()
+        out, err = await asyncio.wait_for(proc.communicate(), 240)
+        await asyncio.gather(*tasks, return_exceptions=True)
+        errors = [repr(t.exception()) for t in tasks
+                  if t.done() and not t.cancelled() and t.exception()]
+    try:
+        res = json.loads(out)
+    except ValueError:
+        raise AssertionError(f"serve_full: torch_stress rc "
+                             f"{proc.returncode}\n{out[-3000:]!r}\n"
+                             f"{''.join(stress_err)}{err[-3000:]!r}")
+    # each steady stream decoded from its session's start, in parallel
+    with concurrent.futures.ProcessPoolExecutor(
+            len(recs), mp_context=multiprocessing.get_context("spawn")) \
+            as pool:
+        futs = [pool.submit(flac_samples, [p for _, p in rec["pkts"]])
+                for rec in recs]
+        decoded = []
+        for f in futs:
+            try:
+                decoded.append(f.result(timeout=240))
+            except ValueError as e:
+                decoded.append(e)
+    return {"m0": m0, "m1": m1, "p0": p0, "p1": p1, "t0": t0, "t1": t1,
+            "fed": fed, "samples": samples, "stress": res,
+            "stress_rc": proc.returncode, "recs": recs, "wf": wf_rec,
+            "decoded": decoded, "client_errors": errors,
+            "device_mem_mb": dev_mb, "device_mem_read": dev_read,
+            "loop_lag_ms": {"p50": percentile(lags, 0.5),
+                            "max": max(lags, default=None)}}
+
+
+def phase_serve_full(tones, pool: bytes) -> dict:
+    """The north-star deployment through the CLI on the card: the bench
+    config (u8 IQ at 35 MSPS, 2^20-point FFT, 36 hops a step, 128
+    channels, 12 kHz FLAC audio, zstd waterfall 1024) as a TOML file
+    read from stdin by ``python -m phantomsdr_tpu_torch --device cuda``
+    on a free port (killed by its PID), fed at 70 MB/s by a PipeFeeder
+    from ``pool`` (4 blocks of ``tones``), served to serve_window's
+    clients: tools/torch_stress.py's 100 churning audio and 28 waterfall
+    clients (half on deflate, every 10th decoding) for SERVE_SECS and
+    beside them a steady listener on each tone (USB, LSB, AM with the
+    PLL, FM) and a waterfall client on the USB carrier.  Passes when the
+    feed holds its rate, the server sustains it, nothing errs or is
+    dropped, every steady listener gets its packets and its tone, the
+    waterfall peaks on the carrier and K-WF, K-PLL and K-AGC ran.
+    Returns the kernels' launches in the window."""
+    import inspect
+    import shutil
+
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.runtime.codecs import FlacEncoder
+    from tools.torch_clients import PipeFeeder
+
+    cfg = config_from_dict(BENCH_CFG)
+    workdir = REPO / "build" / "serve_full"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    port = free_ports(1)[0]
+    conf = {"server": {"port": port}, **BENCH_CFG,
+            "input": {**BENCH_CFG["input"], "audio_compression": "flac",
+                      "waterfall_compression": "zstd",
+                      "driver": {"name": "stdin", "format": "u8"}}}
+    (workdir / "config.toml").write_text(toml_text(conf))
+    wire_rate = 2 * cfg.sps             # u8 IQ: two bytes a sample
+    log = open(workdir / "server.log", "wb")
+    t_start = time.monotonic()
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "phantomsdr_tpu_torch", "-c",
+         str(workdir / "config.toml"), "--device", "cuda"],
+        stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT,
+        cwd=REPO)
+    feeder = PipeFeeder(srv.stdin, pool, wire_rate).start()
+    try:
+        deadline = time.monotonic() + 240
+        while True:
+            try:
+                if http_json(port, "/metrics")["frames"] > 0:
+                    break
+            except OSError:
+                pass
+            if srv.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(
+                    "serve_full: the CLI never served\n" + (
+                        workdir / "server.log").read_text(
+                        errors="replace")[-3000:])
+            time.sleep(0.25)
+        t_serving = time.monotonic() - t_start
+        feeder.mark()           # no catch-up burst for the start's lag
+        w = asyncio.run(serve_window(port, cfg, tones, feeder, srv))
+    finally:
+        feeder.stop()
+        srv.stdin.close()       # EOF: the reader thread ends
+        srv.terminate()
+        try:
+            srv.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            srv.wait()
+        log.close()
+
+    m0, m1, wall = w["m0"], w["m1"], w["t1"] - w["t0"]
+    steps_s = cfg.sps / (cfg.hop_batch * cfg.hop_size)
+    per_step = cfg.hop_batch * cfg.audio_fft_size // 2
+    blocksize = inspect.signature(FlacEncoder).parameters[
+        "blocksize"].default
+    want_pkts = steps_s * per_step / blocksize   # one packet a FLAC frame
+    msps = ((m1["samples_in"] - m0["samples_in"])
+            / (m1["elapsed_s"] - m0["elapsed_s"]) / 1e6)
+    steps = (m1["frames"] - m0["frames"]) / cfg.hop_batch
+    launches = {k: n - m0["kernel_launches"].get(k, 0)
+                for k, n in m1["kernel_launches"].items()}
+    failed = []
+    fed = w["fed"]
+    if fed["mbps"] < wire_rate / 1e6 * 69 / 70 or fed["error"]:
+        failed.append(f"feeder at {fed['mbps']:.3f} MB/s ({fed['error']})")
+    if fed["max_lag_ms"] >= 1e3 / steps_s:
+        failed.append(f"feeder lag {fed['max_lag_ms']:.1f} ms")
+    if abs(msps - cfg.sps / 1e6) > 0.02 * cfg.sps / 1e6:
+        failed.append(f"sustained {msps:.4f} MSPS")
+    if m1["device_errors"] or m1["encode_dropped"]:
+        failed.append(f"device errors {m1['device_errors']} "
+                      f"({m1['last_device_error']}), encode dropped "
+                      f"{m1['encode_dropped']}")
+    if m1.get("dispatch_ms_p99", 0) >= 1e3 / steps_s:
+        failed.append(f"dispatch p99 {m1['dispatch_ms_p99']} ms")
+    st = w["stress"]
+    if st["errors"] or st["decode_errors"] or w["client_errors"] \
+            or w["stress_rc"] or st["decoded_audio_samples"] <= 0 \
+            or st["decoded_wf_rows"] <= 0:
+        failed.append(f"clients: stress rc {w['stress_rc']}, errors "
+                      f"{st['errors']}, decode errors "
+                      f"{st['decode_errors']} ({st.get('last_error')}), "
+                      f"decoded {st['decoded_audio_samples']} samples "
+                      f"{st['decoded_wf_rows']} rows, steady "
+                      f"{w['client_errors']}")
+    tones_out = {}
+    rate = tones.audio_rate     # the stream's true rate (basic_info: 12000)
+    for i, (name, rec, x) in enumerate(zip(MODE_NAMES, w["recs"],
+                                           w["decoded"])):
+        n_win = sum(w["t0"] <= t <= w["t1"] for t, _ in rec["pkts"])
+        pkts_s = n_win / wall
+        row = {"pkts_per_s": pkts_s, "want_pkts_per_s": want_pkts,
+               "closed": rec["closed"]}
+        if isinstance(x, Exception):
+            row["decode_error"] = repr(x)
+            failed.append(f"{name}: FLAC stream {x!r}")
+        else:
+            a = x.astype(np.float64)[int(SERVE_SETTLE_SECS * rate):]
+            row.update(want_hz=tones.tone_bins[i] * tones.df,
+                       got_hz=peak_hz(a, rate) if a.size else None,
+                       rms=float(np.sqrt(np.mean(a ** 2))) if a.size
+                       else 0.0, samples=int(x.size))
+            if row["got_hz"] is None \
+                    or abs(row["got_hz"] - row["want_hz"]) > 3.0 \
+                    or row["rms"] < 100:
+                failed.append(f"{name} tone {row}")
+        if pkts_s < 0.95 * want_pkts or rec["closed"]:
+            failed.append(f"{name}: {pkts_s:.3f} packets/s of "
+                          f"{want_pkts:.3f}")
+        tones_out[name] = row
+    wl = tones.usb_bin - 500
+    rows = [r for l, _, r in w["wf"]["rows"] if l == wl and r.size]
+    cents = sorted({max_run_centroid(r) for r in rows})
+    wf_ok = sum(abs(max_run_centroid(r) - 500) <= 1 for r in rows)
+    if not rows or wf_ok < len(rows) or w["wf"]["closed"]:
+        failed.append(f"waterfall: {wf_ok}/{len(rows)} rows on the "
+                      f"carrier, centroids {cents[:8]}")
+    if min(launches.get(k, 0) for k in ("waterfall", "pll", "agc")) <= 0:
+        failed.append(f"kernel launches {launches}")
+    cpu = (w["p1"]["cpu_s"] - w["p0"]["cpu_s"]) / wall
+    depth = [m.get("encode_queue_depth", 0) for m in w["samples"] + [m1]]
+    r = {
+        "config": {"sps": cfg.sps, "fft_size": cfg.fft_size,
+                   "hop_batch": cfg.hop_batch,
+                   "max_channels": cfg.max_channels,
+                   "audio_sps": cfg.audio_sps,
+                   "waterfall_size": cfg.waterfall_size,
+                   "format": cfg.input_format, "skip_num": cfg.skip_num,
+                   "threads": cfg.threads},
+        "seconds_to_serve": t_serving,
+        "window_s": wall, "feeder": fed,
+        "wire_mbps_target": wire_rate / 1e6,
+        "msps_window": msps, "msps_sustained": m1["msps_sustained"],
+        "msps_device": m1["msps_device"],
+        "step_ms_p50": m1["step_ms_p50"], "steps": steps,
+        "device_busy_share": m1["step_ms_p50"] * 1e-3 * steps / wall,
+        "dispatch_ms_p50": m1.get("dispatch_ms_p50"),
+        "dispatch_ms_p99": m1.get("dispatch_ms_p99"),
+        "device_errors": m1["device_errors"],
+        "encode_dropped": m1["encode_dropped"],
+        "encode_queue_depth": {"end": m1["encode_queue_depth"],
+                               "max": max(depth)},
+        "audio_clients_end": m1["audio_clients"],
+        "waterfall_clients_end": m1["waterfall_clients"],
+        "server_cpu_s_per_s": cpu, "server_threads": w["p1"]["threads"],
+        "server_rss_mb": w["p1"]["rss_kb"] / 1024,
+        "device_mem_mb": w["device_mem_mb"],
+        "device_mem_read": w["device_mem_read"],
+        "audio_MBps": st["audio_MBps"], "wf_MBps": st["wf_MBps"],
+        "stress": {k: v for k, v in st.items() if k != "server_metrics"},
+        "smoke_loop_lag_ms": w["loop_lag_ms"],
+        "steady": tones_out,
+        "waterfall": {"rows": len(rows), "on_carrier": wf_ok,
+                      "centroids": cents[:8]},
+        "launches": launches, "failed": failed}
+    emit({"phase": "serve_full", **r})
+    if failed:
+        raise AssertionError(f"serve_full: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
+    t_main = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3006,6 +3408,10 @@ def main() -> int:
                      "profile": phase_profile(),
                      "verify_tone": phase_verify_tone(),
                      "soak_smoke": phase_soak_smoke()}
+    # the north-star deployment: the host's ingest legs, then the CLI
+    # fed on stdin at 35 MSPS, serving 100 listeners and 28 waterfalls
+    phase_ingest()
+    tool_launches["serve_full"] = phase_serve_full(tones, host_bytes)
 
     # each kernel's launches on its path: the bench-config main phase
     # for K-WF, K-PLL and K-AGC (beside them, the mesh phase's), the
@@ -3040,6 +3446,7 @@ def main() -> int:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: not launched on its path")
         row["checked"] = True
+    emit({"phase": "total", "seconds": time.monotonic() - t_main})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,13 @@ This module keeps its own copies:
   (the system libzstd), Opus through its ``OpusChunkDecoder`` (libopus)
   and AV1 through its ``runtime.av1.AV1Decoder`` (libaom);
 - ``audio_client`` / ``wf_client``: tools/stress.py's churning clients
-  on those decoders;
+  on those decoders, with its RDS and shared-window options;
+- ``loop_lag``: the clients' own event-loop lag, so that a client-side
+  bottleneck is not read as the server's;
+- ``PipeFeeder``: an SDR's side of ``rtl_sdr ... - | python -m
+  phantomsdr_tpu_torch``: wire bytes paced by the clock into a pipe
+  from a looped pool of blocks, with how far behind its schedule it
+  fell;
 - ``tone_check``: tools/verify/client.py's ``tone`` variant (the AM
   tone at its Hz through the FLAC stream, the waterfall peak on its
   carrier, the probes that must not kill the stream, /events).
@@ -24,10 +30,14 @@ This module keeps its own copies:
 from __future__ import annotations
 
 import asyncio
+import fcntl
+import io
 import json
+import os
 import random
 import struct
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -296,12 +306,14 @@ def _cb(b: bytes, p: int):
 
 def new_stats() -> dict:
     """The counters the clients share (``last_error``: the repr of the
-    last error counted)."""
+    last error counted; ``audio_pkts_by_client``: each audio client's
+    packets by its index)."""
     return dict(audio_pkts=0, audio_bytes=0, wf_pkts=0, wf_bytes=0,
                 audio_errors=0, wf_errors=0, audio_closed=0, wf_closed=0,
-                retunes=0, reconnects=0, decoded_audio_samples=0,
-                decoded_wf_rows=0, decode_errors=0, deflate_acks=0,
-                last_error=None)
+                retunes=0, reconnects=0, rds_frames=0, rds_synced=0,
+                decoded_audio_samples=0, decoded_wf_rows=0,
+                decode_errors=0, deflate_acks=0, last_error=None,
+                audio_pkts_by_client={})
 
 
 def _flac_count(chunks) -> tuple[int, int]:
@@ -313,17 +325,24 @@ def _flac_count(chunks) -> tuple[int, int]:
 
 
 async def audio_client(session, url, idx, stats, stop, churn_secs=0.0,
-                       decode=False):
+                       rds=False, same_window=False, decode=False,
+                       executor=None):
     """One audio listener (tools/stress.py's): with churn_secs > 0 it
     connects, listens, retunes mid-life, disconnects and reconnects;
-    decode=True decodes every session's stream (FLAC from its start,
-    Opus packet by packet) and counts samples and decode errors."""
+    rds=True tunes FM and opts into server-side RDS, counting the
+    ``{"type":"rds"}`` text frames; same_window=True puts it on the
+    default window's place in the band (the middle, full width), where
+    every such listener shares one carrier; decode=True decodes every
+    session's stream (FLAC from its start, on ``executor``, Opus packet
+    by packet) and counts samples and decode errors."""
     import aiohttp
 
     from phantomsdr_tpu_torch.runtime.codecs import OpusChunkDecoder
 
     rng = random.Random(idx)
     loop = asyncio.get_running_loop()
+    by_client = stats["audio_pkts_by_client"]
+    by_client.setdefault(idx, 0)
     while not stop.is_set():
         chunks = None
         opus_dec = None
@@ -341,12 +360,18 @@ async def audio_client(session, url, idx, stats, stop, churn_secs=0.0,
                 a = info["audio_max_fft"]
                 l = (idx * 131) % max(rsize - a - 1, 1)
                 width = min(a, 300)
+                if same_window:
+                    l, width = (rsize - a) // 2, a
                 await ws.send_str(json.dumps({
                     "cmd": "window", "l": l, "m": l + width / 2,
                     "r": l + width}))
                 await ws.send_str(json.dumps({
                     "cmd": "demodulation",
-                    "demodulation": ["USB", "LSB", "AM", "FM"][idx % 4]}))
+                    "demodulation": "FM" if rds else
+                    ["USB", "LSB", "AM", "FM"][idx % 4]}))
+                if rds:
+                    await ws.send_str(json.dumps({"cmd": "rds",
+                                                  "enabled": True}))
                 deadline = (time.monotonic()
                             + rng.uniform(0.5, 2.0) * churn_secs
                             if churn_secs else None)
@@ -366,6 +391,7 @@ async def audio_client(session, url, idx, stats, stop, churn_secs=0.0,
                     if msg.type == aiohttp.WSMsgType.BINARY:
                         stats["audio_pkts"] += 1
                         stats["audio_bytes"] += len(msg.data)
+                        by_client[idx] += 1
                         if decode:
                             try:
                                 d = bytes(cbor_decode(msg.data)["data"])
@@ -378,12 +404,18 @@ async def audio_client(session, url, idx, stats, stop, churn_secs=0.0,
                             except Exception as e:  # counted, run goes on
                                 stats["decode_errors"] += 1
                                 stats["last_error"] = repr(e)
+                    elif msg.type == aiohttp.WSMsgType.TEXT:
+                        d = json.loads(msg.data)
+                        if d.get("type") == "rds":
+                            stats["rds_frames"] += 1
+                            if d.get("synced"):
+                                stats["rds_synced"] += 1
                     elif msg.type in (aiohttp.WSMsgType.CLOSE,
                                       aiohttp.WSMsgType.CLOSED,
                                       aiohttp.WSMsgType.ERROR):
                         stats["audio_closed"] += 1
                         return
-            if not churn_secs:
+            if not churn_secs or stop.is_set():
                 return
             stats["reconnects"] += 1
         except Exception as e:  # counted; a churning client reconnects
@@ -396,8 +428,8 @@ async def audio_client(session, url, idx, stats, stop, churn_secs=0.0,
             # FLAC decodes only from the stream start, so per session
             if chunks:
                 try:
-                    n, e = await loop.run_in_executor(None, _flac_count,
-                                                      chunks)
+                    n, e = await loop.run_in_executor(executor,
+                                                      _flac_count, chunks)
                 except asyncio.CancelledError:
                     # end-of-run cancellation: still check the stream
                     n, e = _flac_count(chunks)
@@ -486,6 +518,140 @@ async def wf_client(session, url, idx, stats, stop, deflate=False,
     finally:
         if av1_dec is not None:
             av1_dec.close()
+
+
+LAG_PERIOD = 0.05       # s between the loop-lag probe's wake-ups
+
+
+async def loop_lag(stop: asyncio.Event, lags: list) -> None:
+    """Until ``stop``: how late each LAG_PERIOD sleep of this event loop
+    wakes, in ms, appended to ``lags`` (a loop busy with the clients'
+    own work wakes late, and the server is not at fault for what that
+    delays)."""
+    loop = asyncio.get_running_loop()
+    while not stop.is_set():
+        t = loop.time()
+        await asyncio.sleep(LAG_PERIOD)
+        lags.append((loop.time() - t - LAG_PERIOD) * 1e3)
+
+
+def percentile(xs, q: float):
+    """The ``q`` quantile (0..1) of ``xs`` by rank, or None if empty."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else None
+
+
+PIPE_BYTES = 1 << 20    # the feeder's pipe buffer (F_SETPIPE_SZ)
+FEED_CHUNK = 1 << 20    # the feeder's write: 15 ms of the bench's feed
+
+
+class PipeFeeder:
+    """Wire bytes paced by the clock into ``out`` (a pipe's write end,
+    such as a server's stdin), as an SDR writes its samples: ``pool``
+    (bytes of whole blocks) is looped, so a tone on an exact FFT bin
+    keeps its phase across the wrap, and chunk k (FEED_CHUNK bytes) goes
+    out once the
+    clock reaches the time its last byte would have been sampled at
+    ``rate`` bytes/s (``rate`` None: as fast as the reader drains).
+
+    A chunk's lag is how late its write completes against that time: a
+    reader that falls behind fills the pipe, the write blocks, and the
+    lag grows.  ``mark`` starts a window: the schedule is anchored
+    anew and the counters start from zero; ``stats`` reports the
+    window."""
+
+    def __init__(self, out, pool, rate: float | None):
+        self.out = out
+        self.pool = memoryview(pool).cast("B")
+        self.rate = rate
+        self.error: str | None = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="pipe-feeder")
+        self._gen = 0
+        self._window(time.monotonic())
+
+    def _window(self, t0: float) -> None:
+        """Anchor the schedule at ``t0`` and zero the window's counters
+        (the lock held, or before the thread starts)."""
+        self._gen += 1
+        self._t0, self._sent, self._chunks = t0, 0, 0
+        self._lag_max = self._lag_sum = 0.0
+
+    def start(self) -> "PipeFeeder":
+        with self._lock:
+            self._window(time.monotonic())
+        self._thread.start()
+        return self
+
+    def mark(self) -> None:
+        with self._lock:
+            self._window(time.monotonic())
+
+    def stats(self) -> dict:
+        with self._lock:
+            secs = time.monotonic() - self._t0
+            return {"secs": secs, "bytes": self._sent,
+                    "mbps": self._sent / max(secs, 1e-9) / 1e6,
+                    "chunks": self._chunks,
+                    "max_lag_ms": self._lag_max * 1e3,
+                    "mean_lag_ms": (self._lag_sum / self._chunks * 1e3
+                                    if self._chunks else None),
+                    "error": self.error}
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        self._thread.join(timeout)
+
+    def _write(self, piece: memoryview) -> None:
+        fd = self.out.fileno()
+        while piece:
+            piece = piece[os.write(fd, piece):]
+
+    def _run(self) -> None:
+        n, pos = len(self.pool), 0
+        try:
+            while not self._stop.is_set():
+                piece = self.pool[pos:min(pos + FEED_CHUNK, n)]
+                with self._lock:
+                    gen, t0, sent = self._gen, self._t0, self._sent
+                due = (t0 + (sent + len(piece)) / self.rate
+                       if self.rate else time.monotonic())
+                if self._stop.wait(max(due - time.monotonic(), 0.0)):
+                    return
+                self._write(piece)
+                lag = max(time.monotonic() - due, 0.0)
+                with self._lock:
+                    if gen == self._gen:    # not across a mark
+                        self._sent += len(piece)
+                        self._chunks += 1
+                        self._lag_sum += lag
+                        self._lag_max = max(self._lag_max, lag)
+                pos = (pos + len(piece)) % n
+        except OSError as e:    # the reader went away (BrokenPipeError)
+            self.error = repr(e)
+
+
+def feed_pipe(pool, rate: float | None):
+    """(the read end of a new OS pipe, a started PipeFeeder on its write
+    end); the pipe's buffer is set to PIPE_BYTES where the kernel lets
+    it.  Closing the read end ends the feeder."""
+    rfd, wfd = os.pipe()
+    try:
+        fcntl.fcntl(wfd, fcntl.F_SETPIPE_SZ, PIPE_BYTES)
+    except (OSError, AttributeError):
+        pass
+    out = io.open(wfd, "wb", buffering=0)
+    return io.open(rfd, "rb"), PipeFeeder(out, pool, rate).start()
+
+
+def seeded_pool(nbytes: int, seed: int) -> np.ndarray:
+    """``nbytes`` of u8 IQ wire bytes made from ``seed``: noise about the
+    u8 midpoint, as a receiver gives with no strong signal."""
+    rng = np.random.default_rng(seed)
+    return np.clip(np.rint(rng.normal(128.0, 24.0, nbytes)), 0,
+                   255).astype(np.uint8)
 
 
 # ------------------------------------------------------------- tone check
