@@ -107,6 +107,17 @@ Phases, one JSON line each (any failure exits non-zero):
              client.py's tone check for 8 s through the port's decoders,
              tools/torch_clients.tone_check): the tone's Hz, the
              waterfall rows on the carrier, the CLI's launches
+12b. verify_variants  tools/verify's other checks through the CLI on the
+             card, three runs at a time: for each of am, stereo, rds,
+             both, de, soak, nr and lms (not both over Opus: the card's
+             machine has no libopus), the capture of
+             tools/torch_verify.make, `python -m phantomsdr_tpu_torch
+             --loop --throttle --device cuda` on a free port (killed by
+             its PID) and `tools/torch_verify.py check` (client.py's
+             windows, trims and bars on the port's decoders); each run's
+             figures beside client.py's bars, the kernels its config
+             turns on launched, no device error, the server's step time
+             and RSS
 13. soak_smoke  tools/torch_soak.py for 60 s on the card with loosened
              bars: at least 100 audio and 100 waterfall packets, no
              error, the CLI's launches of K-WF, K-PLL and K-AGC
@@ -2935,6 +2946,147 @@ def phase_verify_tone() -> dict:
     return launches
 
 
+# tools/verify's variant checks through the CLI: (run, variant, audio
+# compression, the client's --secs, the kernels the config turns on).
+# --secs: client.py's 8 s default, the RDS recipes' 25 s (PS and RT
+# fill over 1.75 s group cycles, resynced at each loop of the 6 s
+# capture), the card's 20 s for the noise processors (SKILL.md 1c).
+# Not run: ``both`` over Opus, as the card's machine has no libopus.so.0
+# (the server's OpusChunkEncoder cannot load it), and ``nb``, whose bar
+# lies inside the blanker's threshold flips (F1)
+VERIFY_RUNS = (
+    ("am", "am", "flac", 8.0, ("pll", "agc")),
+    ("stereo", "stereo", "flac", 8.0, ("pilot", "agc_float")),
+    ("rds", "rds", "flac", 25.0, ("pilot", "agc_float")),
+    ("both", "both", "flac", 25.0, ("pilot", "agc_float")),
+    ("de", "de", "flac", 8.0, ("deemph", "agc_float")),
+    ("soak", "soak", "flac", 25.0, ("pilot", "agc_float", "deemph")),
+    ("nr", "nr", "flac", 20.0, ("pll", "agc_float", "nr")),
+    ("lms", "lms", "flac", 20.0, ("pll", "agc_float", "anr")),
+)
+VERIFY_PARALLEL = 3     # servers on the card at a time
+VERIFY_PORTS: set = set()
+VERIFY_PORTS_LOCK = threading.Lock()
+
+
+def verify_run(run: str, variant: str, comp: str, secs: float,
+               need: tuple) -> dict:
+    """One run of the verify_variants phase: the capture into
+    build/verify_<run>/, the CLI on a port taken just before it starts
+    (so no earlier run's client sockets can have taken it) until
+    /metrics counts frames, then ``tools/torch_verify.py check`` with the kernels'
+    launches read before and after.  Raises on a miss, a time-out, a
+    server that exits early, a device error or a kernel of ``need`` not
+    launched; the directory, with its server.log, stays on a failure."""
+    import shutil
+
+    from tools.torch_verify import BARS, make
+
+    workdir = REPO / "build" / f"verify_{run}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.monotonic()
+    with VERIFY_PORTS_LOCK:     # a port no other run of the phase holds
+        port = free_ports(1)[0]
+        while port in VERIFY_PORTS:
+            port = free_ports(1)[0]
+        VERIFY_PORTS.add(port)
+    make(variant, workdir, port, 6.0, audio_compression=comp)
+
+    def fail(what: str):
+        return AssertionError(
+            f"verify_variants {run}: {what}\n" + (
+                workdir / "server.log").read_text(errors="replace")[-3000:])
+
+    log = open(workdir / "server.log", "wb")
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "phantomsdr_tpu_torch", "-c",
+         str(workdir / "config.toml"), "--input-file",
+         str(workdir / "capture.s16"), "--loop", "--throttle", "--device",
+         "cuda"], stdout=log, stderr=subprocess.STDOUT,
+        stdin=subprocess.DEVNULL, cwd=REPO)
+    try:
+        deadline = time.monotonic() + 240
+        while True:
+            try:
+                if http_json(port, "/metrics")["frames"] > 0:
+                    break
+            except OSError:
+                pass
+            if srv.poll() is not None or time.monotonic() > deadline:
+                raise fail("the CLI never served")
+            time.sleep(0.5)
+        t_serving = time.monotonic() - t0
+        before = metrics_launches(port)
+        chk = subprocess.run(
+            [sys.executable, "tools/torch_verify.py", "check", "--dir",
+             str(workdir), "--secs", str(secs)], capture_output=True,
+            text=True, cwd=REPO, timeout=4 * secs + 300)
+        after = http_json(port, "/metrics")
+        stat = proc_stat(srv.pid)
+        if srv.poll() is not None:
+            raise fail(f"the CLI exited {srv.returncode} during the check")
+    finally:
+        srv.terminate()
+        try:
+            srv.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            srv.wait()
+        log.close()
+    if chk.returncode != 0:
+        raise fail(f"check exited {chk.returncode}\n{chk.stdout[-2000:]}"
+                   f"{chk.stderr[-3000:]}")
+    res = json.loads(chk.stdout.strip().splitlines()[-1])
+    launches = {k: n - before.get(k, 0)
+                for k, n in after["kernel_launches"].items()}
+    if after["device_errors"] or not res["pass"] \
+            or min(launches[k] for k in need) <= 0:
+        raise fail(f"device errors {after['device_errors']} "
+                   f"({after.get('last_device_error')}), launches "
+                   f"{launches}, need {need}, result {res}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"phase": "verify_variants", "run": run, "variant": variant,
+            "audio_compression": comp, "secs": secs,
+            "figures": {k: v for k, v in res.items()
+                        if k not in ("variant", "pass")},
+            "bars": BARS[variant], "pass": res["pass"],
+            "launched": sorted(k for k, n in launches.items() if n > 0),
+            "need": list(need), "launches": launches,
+            "server_step_ms_p50": after["step_ms_p50"],
+            "server_rss_kb": stat["rss_kb"],
+            "device_errors": after["device_errors"],
+            "seconds_to_serve": t_serving,
+            "seconds": time.monotonic() - t0}
+
+
+def phase_verify_variants() -> dict:
+    """VERIFY_RUNS through verify_run, VERIFY_PARALLEL at a time (each
+    run's client decodes its stream in a process of its own), one line
+    each in VERIFY_RUNS' order; any failed run fails the phase after
+    every run has ended.  Returns each run's launches as
+    {"verify <run>": launches}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(VERIFY_PARALLEL) as pool:
+        futs = [pool.submit(verify_run, *r) for r in VERIFY_RUNS]
+    failed = []
+    out = {}
+    for r, f in zip(VERIFY_RUNS, futs):
+        try:
+            row = f.result()
+        except Exception as e:      # reported, and the phase fails below
+            failed.append(f"{r[0]}: {e!r}")
+            continue
+        emit(row)
+        out[f"verify {r[0]}"] = row["launches"]
+    emit({"phase": "verify_variants", "runs": len(VERIFY_RUNS),
+          "failed": len(failed), "seconds": time.monotonic() - t0})
+    if failed:
+        raise AssertionError("verify_variants:\n" + "\n\n".join(failed))
+    return out
+
+
 def phase_soak_smoke() -> dict:
     """tools/torch_soak.py for 60 s on the card with tests/test_soak.py's
     loosened bars (no hourly RSS budget, latency within 4x): at least
@@ -3402,11 +3554,12 @@ def main() -> int:
     wbfm_launches = phase_wbfm(kernels)
     rds_launches = phase_rds(kernels)
     # the JAX side's entry points and tools, ported: the graft entry
-    # and dryrun, the stage profiler, the tone check and a soak through
-    # the CLI
+    # and dryrun, the stage profiler, tools/verify's checks and a soak
+    # through the CLI
     tool_launches = {"entry": phase_entry(main_kernels),
                      "profile": phase_profile(),
                      "verify_tone": phase_verify_tone(),
+                     **phase_verify_variants(),
                      "soak_smoke": phase_soak_smoke()}
     # the north-star deployment: the host's ingest legs, then the CLI
     # fed on stdin at 35 MSPS, serving 100 listeners and 28 waterfalls

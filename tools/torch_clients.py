@@ -24,7 +24,9 @@ This module keeps its own copies:
   fell;
 - ``tone_check``: tools/verify/client.py's ``tone`` variant (the AM
   tone at its Hz through the FLAC stream, the waterfall peak on its
-  carrier, the probes that must not kill the stream, /events).
+  carrier, the probes that must not kill the stream, /events), on
+  ``collect_audio``, which tools/torch_verify.py shares for the other
+  variants.
 """
 
 from __future__ import annotations
@@ -664,9 +666,11 @@ def _row_peak(raw, hl, hr):
     return peak, scale
 
 
-async def _collect_audio(session, url, secs, cmds, probes=False,
-                         settle=0.0):
-    """client.py's collect_audio: every binary payload for secs+settle."""
+async def collect_audio(session, url, secs, cmds=(), text_frames=None,
+                        probes=False, settle=0.0):
+    """client.py's collect_audio: (basic_info, every binary payload for
+    secs+settle); with ``text_frames`` a list, each JSON text frame (the
+    RDS frames) is appended to it."""
     import aiohttp
 
     chunks = []
@@ -690,7 +694,10 @@ async def _collect_audio(session, url, secs, cmds, probes=False,
                 break
             if msg.type == aiohttp.WSMsgType.BINARY:
                 chunks.append(cbor_decode(msg.data)["data"])
-            elif msg.type != aiohttp.WSMsgType.TEXT:
+            elif msg.type == aiohttp.WSMsgType.TEXT:
+                if text_frames is not None:
+                    text_frames.append(json.loads(msg.data))
+            else:
                 break
     return info, chunks
 
@@ -741,7 +748,7 @@ async def tone_check(url: str, truth: dict, secs: float = 8.0) -> dict:
 
     async with aiohttp.ClientSession(
             connector=aiohttp.TCPConnector(limit=0)) as s:
-        info, _ = await _collect_audio(s, url, 0.1, ())
+        info, _ = await collect_audio(s, url, 0.1, ())
         for k in ("sps", "fft_size", "fft_result_size", "basefreq"):
             assert k in info, f"basic_info missing {k}"
         assert info["sps"] == truth["sps"], info["sps"]
@@ -753,8 +760,8 @@ async def tone_check(url: str, truth: dict, secs: float = 8.0) -> dict:
         cmds = [{"cmd": "window", "l": int(m - off), "m": m,
                  "r": int(m + off)},
                 {"cmd": "demodulation", "demodulation": "AM"}]
-        _, chunks = await _collect_audio(s, url, secs, cmds, probes=True,
-                                         settle=1.0)
+        _, chunks = await collect_audio(s, url, secs, cmds, probes=True,
+                                        settle=1.0)
         _, samples = await asyncio.get_running_loop().run_in_executor(
             None, decode_flac, b"".join(bytes(c) for c in chunks))
         x = samples.astype(np.float64)[int(1.0 * fs):] / 32768.0
