@@ -143,6 +143,36 @@ Phases, one JSON line each (any failure exits non-zero):
              K-WF, K-PLL and K-AGC launched in the window; with the
              server's CPU seconds a second, threads, RSS, device memory,
              step time, device-busy share and encode queue depth
+16. bench    `python -m phantomsdr_tpu_torch.bench --profile iq`, then
+             `--profile real` (bench.py's counterpart, at bench.py's own
+             window lengths, in build/bench/): each last stdout line
+             bench.py's four keys with a value > 0, each details file
+             K-WF, K-PLL and K-AGC launched in the timed windows; the
+             value, the windows, the with-ingest MSPS and the step ms
+17. serve_rx888  configs/config.example.rx888.toml as shipped (s16 real
+             at 70 MSPS, 2^20-point FFT, 12 hops a step, 128 channels,
+             the LSB default at 7.1 MHz; only its port set) through the
+             CLI, read from stdin at 140 MB/s (PipeFeeder, RealTones'
+             blocks): serve_full's clients and bars for 30 s, taken over
+             to this deployment (the feed >= 138.6 MB/s with its longest
+             lag under 539 ms, 70 MSPS within 2%, the dispatch p99 under
+             one block, 89.9 ms), its steady listeners tuned by the
+             real-input mapping (tools/torch_clients.hz_to_bin) plus one
+             on the default window
+
+The real-input path: the kernels phase holds
+K-WF, K-PLL and K-AGC also at bench.py's real profile (REAL_CFG: s16
+real at 70 MSPS, 96 hops a step, 64 channels, waterfall 1024) -- K-WF on
+the 8 due rows of a [96, 524,289] spectrum, base_idx 0, 10 levels,
+equal; K-PLL at [64, 8640] over three chained calls and K-AGC at [64,
+8640] at their lines' tolerances -- as a ``real`` object on each line;
+after small_nr, small_real runs the whole real step on the card against
+the CPU at the rx888 TOML's sizes over 128 (SMALL_REAL_CFG: FFT 8192,
+12 hops, 16 channels, am_sync on with one envelope listener, 'views'
+then 'off'; phase_small's tolerances, the power within rtol 2e-4); after
+main, real runs HopPipeline.step at REAL_CFG for 8 'views' and 2 'off'
+steps over RealTones' capture (a tone per mode on exact bins in 0-35
+MHz) with main's criteria, the step ms and the device-busy share.
 
 then the whole script's time, the kernel table, the card's nvidia-smi
 line, and as the last line
@@ -162,6 +192,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -199,6 +230,27 @@ SOAK_CFG = {
         "driver": {"format": "s16"},
     },
     "tpu": {"hop_batch": 4, "max_channels": 128},
+}
+# bench.py's real profile (RX888 class): s16 real at 70 MSPS, 2^20-point
+# FFT (524,288 display bins), 96 hops a step, 64 channels, waterfall 1024
+REAL_CFG = {
+    "input": {
+        "sps": 70_000_000, "frequency": 0, "fft_size": 1 << 20,
+        "signal": "real", "audio_sps": 12000, "waterfall_size": 1024,
+        "driver": {"format": "s16"},
+    },
+    "tpu": {"hop_batch": 96, "max_channels": 64},
+}
+# configs/config.example.rx888.toml with its sizes over 128 (546,875 S/s,
+# FFT 8192, waterfall 16: the same 66.76 Hz a bin, 180-point audio IFFTs,
+# skip_num 12 and 9 pyramid levels), 16 channels
+SMALL_REAL_CFG = {
+    "input": {
+        "sps": 546_875, "frequency": 0, "fft_size": 8192, "signal": "real",
+        "audio_sps": 12000, "waterfall_size": 16,
+        "driver": {"format": "s16"},
+    },
+    "tpu": {"hop_batch": 12, "max_channels": 16},
 }
 
 
@@ -419,6 +471,56 @@ class Tones:
         iq = torch.stack([x.real, x.imag], dim=-1) + noise
         return torch.clamp(torch.round(iq * 128 + 128), 0, 255).to(
             torch.uint8).reshape(-1)
+
+
+class RealTones:
+    """The real-input counterpart of Tones: one tone per demodulation
+    mode on an exact FFT bin in 0-35 MHz (the bin of f Hz is f * 2R /
+    sps, R = N/2 display bins from 0 Hz), plus noise, as s16 real.  The
+    LSB tone lies 15 bins under 7.1 MHz, inside the default LSB window of
+    configs/config.example.rx888.toml (l = 106,333, m = 106,355.57, r =
+    106,355 at its 2^20-point FFT)."""
+
+    def __init__(self, cfg):
+        n, fs, r = cfg.fft_size, cfg.sps, cfg.fft_result_size
+        self.df = fs / n                            # Hz per bin
+        self.audio_rate = cfg.audio_fft_size * self.df
+        off3 = 3000 * n // fs                       # 3 / 5 kHz in bins
+        off5 = 5000 * n // fs
+        m = [int(0.30 * r), int(7_100_000 * n / fs), int(0.60 * r),
+             int(0.70 * r)]
+        self.m = m
+        self.chans = [(m[0], m[0] + off3, m[0]), (m[1] - off3, m[1], m[1]),
+                      (m[2] - off5, m[2] + off5, m[2]),
+                      (m[3] - off5, m[3] + off5, m[3])]
+        self.tone_bins = [15, 15, 10, 6]
+        self.names = ["USB", "LSB", "AM", "FM"]
+        self.usb_bin = m[0] + self.tone_bins[0]     # waterfall check
+        self.fs, self.n = fs, n
+
+    def real(self, start: int, count: int, gen):
+        """Samples [start, start+count) as s16 on the card; every phase
+        is 2 pi (t * bin mod N) / N in integers, so exact at any t."""
+        import torch
+
+        t = torch.arange(start, start + count, dtype=torch.int64,
+                         device="cuda")
+
+        def phase(b: int):
+            return (torch.remainder(t * b, self.n).to(torch.float64)
+                    * (2 * math.pi / self.n))
+
+        m, tb = self.m, self.tone_bins
+        x = 0.2 * torch.cos(phase(m[0] + tb[0]))
+        x += 0.2 * torch.cos(phase(m[1] - tb[1]))
+        x += 0.15 * (1.0 + 0.5 * torch.cos(phase(tb[2]))) * torch.cos(
+            phase(m[2]))
+        beta = 2000.0 / (tb[3] * self.df)           # 2 kHz deviation
+        x += 0.2 * torch.cos(phase(m[3]) + beta * torch.sin(phase(tb[3])))
+        x += torch.randn(count, dtype=torch.float64, device="cuda",
+                         generator=gen) * 0.01
+        return torch.clamp(torch.round(x * 32000), -32768, 32767).to(
+            torch.int16)
 
 
 def bench_tables(cfg, tones):
@@ -647,22 +749,19 @@ def phase_build(kernels):
           "libraries": [k.lib_path().name for k in kernels]})
 
 
-def phase_kernels(cfg, raw0):
-    """Each kernel vs its plain version at the main path's shapes."""
+def check_wf(cfg, raw):
+    """K-WF against its plain version (max |diff| 0) on the cadence-due
+    rows of the spectra of one step of ``raw`` at ``cfg``: the measured
+    fields of its kernel line, its call and its plain version's."""
     import torch
 
-    from phantomsdr_tpu_torch.ops.agc import AGCState, make_agc_params
-    from phantomsdr_tpu_torch.ops.cuda import agc, pll, waterfall
+    from phantomsdr_tpu_torch.ops.cuda import waterfall
     from phantomsdr_tpu_torch.pipeline import (
         HopPipeline, spectra_from_raw, waterfall_due_positions,
     )
 
-    rows_out = []
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     pipe = HopPipeline(cfg, device="cuda")
-
-    # ---- K-WF on the main path's spectra and due rows
-    spec = spectra_from_raw(cfg, pipe.window, raw0, cfg.hop_batch)
+    spec = spectra_from_raw(cfg, pipe.window, raw, cfg.hop_batch)
     rows = torch.tensor(waterfall_due_positions(cfg, 0), dtype=torch.int32,
                         device="cuda")
     kw = dict(fft_result_size=cfg.fft_result_size, base_idx=cfg.base_idx,
@@ -673,37 +772,38 @@ def phase_kernels(cfg, raw0):
     diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
     wf_err, wf_frac = int(diff.max()), float((diff > 0).float().mean())
     if wf_err != 0:
-        raise AssertionError(f"K-WF vs plain: max {wf_err} steps on "
+        raise AssertionError(f"K-WF vs plain at [{cfg.hop_batch}, "
+                             f"{spec.shape[1]}]: max {wf_err} steps on "
                              f"{wf_frac:.2e} of bins")
     d, r = rows.shape[0], cfg.fft_result_size
     p = got.shape[1]
     b_ms, b_by = bound_ms(8 * d * r + d * p, d * r * 3 + d * p * 6)
-    rows_out.append(dict(
-        name="K-WF waterfall pyramid", route="cuda", kernel=waterfall.KERNEL,
-        source="phantomsdr_tpu_torch/csrc/waterfall.cu",
-        replaces="phantomsdr_tpu/ops/pallas/waterfall.py:96",
-        shape=f"[{cfg.hop_batch}, {r}] c64 spectra, {d} due rows -> "
-              f"[{d}, {p}] int8",
-        max_abs_err=wf_err, frac_differing=wf_frac,
-        tolerance="equal (the plain version's arithmetic and pair order)",
-        ms=time_ms(lambda: waterfall.waterfall_rows(spec, rows, **kw), 20),
-        kernel_ms=kernel_ms(lambda: waterfall.waterfall_rows(spec, rows,
-                                                             **kw)),
-        device_ms=device_ms(lambda: waterfall.waterfall_rows(spec, rows,
-                                                             **kw)),
-        **profiled(
-            lambda: waterfall.waterfall_rows(spec, rows, **kw)),
-        plain_ms=time_ms(
-            lambda: waterfall.waterfall_rows_plain(spec, rows, **kw), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    del spec, got, want
 
-    # ---- K-PLL on [C, B*half] AM streams: carriers a few Hz off, 0.5
-    # modulated baseband plus noise; three consecutive calls carry the
-    # phase and frequency from one to the next
-    c, half = cfg.max_channels, cfg.audio_fft_size // 2
-    n = cfg.hop_batch * half
-    calls = 3
+    def run():
+        waterfall.waterfall_rows(spec, rows, **kw)
+
+    def plain():
+        waterfall.waterfall_rows_plain(spec, rows, **kw)
+
+    return dict(
+        shape=f"[{cfg.hop_batch}, {spec.shape[1]}] c64 spectra, {d} due "
+              f"rows, {cfg.downsample_levels} levels, base_idx "
+              f"{cfg.base_idx} -> [{d}, {p}] int8",
+        max_abs_err=wf_err, frac_differing=wf_frac,
+        ms=time_ms(run, 20), kernel_ms=kernel_ms(run),
+        device_ms=device_ms(run), bound_ms=b_ms, bound_by=b_by), run, plain
+
+
+def check_pll(c: int, n: int, gen, calls: int = 3):
+    """K-PLL against its plain version on [c, n] AM streams (carriers a
+    few Hz off, 0.5 modulated baseband plus noise) over ``calls``
+    consecutive calls that carry the phase and frequency: the measured
+    fields of its kernel line, and its first call's, its plain
+    version's and its chain probe's calls."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.cuda import pll
+
     t = torch.arange(calls * n, device="cuda", dtype=torch.float32)
     off = (torch.rand(c, 1, device="cuda", generator=gen) - 0.5) * 0.02
     ph0 = torch.rand(c, 1, device="cuda", generator=gen) * 6.0
@@ -727,40 +827,45 @@ def phase_kernels(cfg, raw0):
         torch.cuda.synchronize()
         pll_err = max(pll_err, float((got[0] - want[0]).abs().max()))
         if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
-            raise AssertionError(f"K-PLL vs plain: phase/freq carries differ "
-                                 f"after call {k + 1}")
+            raise AssertionError(f"K-PLL vs plain at [{c}, {n}]: phase/freq "
+                                 f"carries differ after call {k + 1}")
         kcar, pcar = got[1:], want[1:]
     if not pll_err <= PLL_ATOL * scale:
-        raise AssertionError(f"K-PLL vs plain: max |diff| {pll_err} > "
-                             f"{PLL_ATOL} * {scale}")
+        raise AssertionError(f"K-PLL vs plain at [{c}, {n}]: max |diff| "
+                             f"{pll_err} > {PLL_ATOL} * {scale}")
     del carrier_all, baseband_all, car, msg, noise, t
     b_ms, b_by = bound_ms(c * n * (8 + 8 + 4) + 4 * c * 4,
                           c * n * PLL_OPS_PER_SAMPLE)
 
-    def run_pll():
+    def run():
         pll.am_sync_detect(carrier, baseband, phase0, freq0)
 
-    rows_out.append(dict(
-        name="K-PLL AM carrier PLL", route="cuda", kernel=pll.KERNEL,
-        source="phantomsdr_tpu_torch/csrc/pll.cu",
-        replaces="phantomsdr_tpu/ops/channelizer.py:155 (lax.scan via "
-                 "ops/unroll.py:60)",
+    def plain():
+        pll.am_sync_detect_plain(carrier, baseband, phase0, freq0)
+
+    def chain():
+        pll.chain_probe(carrier, phase0, freq0)
+
+    return dict(
         shape=f"[{c}, {n}] c64 carrier + baseband -> [{c}, {n}] f32",
         max_abs_err=pll_err, chained_calls=calls,
-        tolerance=f"|diff| <= {PLL_ATOL} * max|baseband|, carries equal",
-        ms=time_ms(run_pll, 10),
-        kernel_ms=kernel_ms(run_pll),
-        device_ms=device_ms(run_pll),
-        plain_ms=time_ms(lambda: pll.am_sync_detect_plain(
-            carrier, baseband, phase0, freq0), 1, warmup=0),
-        chain_floor_ms=device_ms(lambda: pll.chain_probe(carrier, phase0,
-                                                         freq0)),
-        **profiled(run_pll),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        chain_note=f"{n} dependent loop steps per channel"))
+        ms=time_ms(run, 10), kernel_ms=kernel_ms(run),
+        device_ms=device_ms(run), bound_ms=b_ms, bound_by=b_by), \
+        run, plain, chain
 
-    # ---- K-AGC on [C, B*half] streams with a mix of warm-up states
-    params = make_agc_params(cfg.audio_sps)
+
+def check_agc(c: int, b: int, half: int, audio_sps: int, gen):
+    """K-AGC against its plain version (int16 within 1, the carried
+    state equal) on [c, b * half] streams with a mix of warm-up states:
+    the measured fields of its kernel line, and its call's, its plain
+    version's and its chain probe's calls."""
+    import torch
+
+    from phantomsdr_tpu_torch.ops.agc import AGCState, make_agc_params
+    from phantomsdr_tpu_torch.ops.cuda import agc
+
+    n = b * half
+    params = make_agc_params(audio_sps)
     w = params.window
     x = torch.randn(c, n, device="cuda", generator=gen) * 0.05
     x[:, ::97] *= 8.0
@@ -770,7 +875,6 @@ def phase_kernels(cfg, raw0):
         gain=torch.rand(c, device="cuda", generator=gen) * 5.0,
         seen=torch.tensor([0, w // 2, w - 1, w] * (c // 4),
                           dtype=torch.int32, device="cuda"))
-    b = cfg.hop_batch
     out_k = torch.empty(b, c, half, dtype=torch.int16, device="cuda")
     out_p = torch.empty_like(out_k)
     st_k = agc.agc_int16(state, x, params, out_k)
@@ -778,34 +882,99 @@ def phase_kernels(cfg, raw0):
     torch.cuda.synchronize()
     agc_err = int((out_k.to(torch.int32) - out_p.to(torch.int32)).abs().max())
     if agc_err > 1:
-        raise AssertionError(f"K-AGC vs plain: int16 max |diff| {agc_err}")
+        raise AssertionError(f"K-AGC vs plain at [{c}, {n}]: int16 max "
+                             f"|diff| {agc_err}")
     if not (torch.equal(st_k.tail, st_p.tail)
             and torch.equal(st_k.seen, st_p.seen)
             and torch.allclose(st_k.gain, st_p.gain, rtol=1e-5)):
-        raise AssertionError("K-AGC vs plain: carried state differs")
+        raise AssertionError(f"K-AGC vs plain at [{c}, {n}]: carried state "
+                             f"differs")
     m = w - 1 + n
     b_ms, b_by = bound_ms(c * (4 * n + 4 * (w - 1) + 8) + c * (2 * n
                           + 4 * (w - 1) + 8),
                           c * (m * math.log2(w) + n * AGC_OPS_PER_SAMPLE))
+
+    def run():
+        agc.agc_int16(state, x, params, out_k)
+
+    def plain():
+        agc.agc_int16_plain(state, x, params, out_p)
+
+    def chain():
+        agc.chain_probe(x, state.gain, params)
+
+    return dict(
+        shape=f"[{c}, {n}] f32, window {w} -> [{b}, {c}, {half}] int16",
+        max_abs_err=agc_err, ms=time_ms(run, 20), kernel_ms=kernel_ms(run),
+        device_ms=device_ms(run), bound_ms=b_ms, bound_by=b_by), \
+        run, plain, chain
+
+
+def phase_kernels(cfg, raw0):
+    """Each kernel vs its plain version at the main path's shapes; K-WF,
+    K-PLL and K-AGC also at the real-input shapes of REAL_CFG (their
+    lines' ``real`` objects)."""
+    import torch
+
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.ops.cuda import agc, pll, waterfall
+
+    rows_out = []
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    # ---- K-WF on the main path's spectra and due rows
+    wf, run, plain = check_wf(cfg, raw0)
+    rows_out.append(dict(
+        name="K-WF waterfall pyramid", route="cuda", kernel=waterfall.KERNEL,
+        source="phantomsdr_tpu_torch/csrc/waterfall.cu",
+        replaces="phantomsdr_tpu/ops/pallas/waterfall.py:96",
+        tolerance="equal (the plain version's arithmetic and pair order)",
+        **wf, **profiled(run), plain_ms=time_ms(plain, 5), library_ms=None))
+    del run, plain
+
+    # ---- K-PLL on [C, B*half] AM streams, three chained calls
+    c, half = cfg.max_channels, cfg.audio_fft_size // 2
+    n = cfg.hop_batch * half
+    pl, run, plain, chain = check_pll(c, n, gen)
+    rows_out.append(dict(
+        name="K-PLL AM carrier PLL", route="cuda", kernel=pll.KERNEL,
+        source="phantomsdr_tpu_torch/csrc/pll.cu",
+        replaces="phantomsdr_tpu/ops/channelizer.py:155 (lax.scan via "
+                 "ops/unroll.py:60)",
+        tolerance=f"|diff| <= {PLL_ATOL} * max|baseband|, carries equal",
+        **pl, plain_ms=time_ms(plain, 1, warmup=0),
+        chain_floor_ms=device_ms(chain), **profiled(run), library_ms=None,
+        chain_note=f"{n} dependent loop steps per channel"))
+
+    # ---- K-AGC on [C, B*half] streams with a mix of warm-up states
+    ag, run, plain, chain = check_agc(c, cfg.hop_batch, half,
+                                      cfg.audio_sps, gen)
     rows_out.append(dict(
         name="K-AGC look-ahead AGC + int16", route="cuda", kernel=agc.KERNEL,
         source="phantomsdr_tpu_torch/csrc/agc.cu",
         replaces="phantomsdr_tpu/ops/agc.py:193 (lax.scan) + "
                  "agc.py:108 (_sliding_max_abs)",
-        shape=f"[{c}, {n}] f32, window {w} -> [{b}, {c}, {half}] int16",
-        max_abs_err=agc_err, tolerance="int16 |diff| <= 1",
-        ms=time_ms(lambda: agc.agc_int16(state, x, params, out_k), 20),
-        kernel_ms=kernel_ms(lambda: agc.agc_int16(state, x, params, out_k)),
-        device_ms=device_ms(lambda: agc.agc_int16(state, x, params, out_k)),
-        plain_ms=time_ms(lambda: agc.agc_int16_plain(state, x, params,
-                                                     out_p), 1, warmup=0),
-        chain_floor_ms=device_ms(lambda: agc.chain_probe(x, state.gain,
-                                                         params)),
-        **profiled(
-            lambda: agc.agc_int16(state, x, params, out_k)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        tolerance="int16 |diff| <= 1", **ag,
+        plain_ms=time_ms(plain, 1, warmup=0),
+        chain_floor_ms=device_ms(chain), **profiled(run), library_ms=None,
         chain_note=f"{n} dependent gain steps per channel"))
+    del run, plain, chain
     agc_int16_row = rows_out[-1]
+
+    # ---- the same three at the real-input shapes: bench.py's real
+    # profile (its own generator: the draws above stay as they were)
+    rcfg = config_from_dict(REAL_CFG)
+    rgen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    raw = RealTones(rcfg).real(0, (rcfg.hop_batch + 1) * rcfg.hop_size,
+                               rgen)
+    rows_out[0]["real"] = check_wf(rcfg, raw)[0]
+    del raw
+    rhalf = rcfg.audio_fft_size // 2
+    rows_out[1]["real"] = check_pll(rcfg.max_channels,
+                                    rcfg.hop_batch * rhalf, rgen)[0]
+    rows_out[2]["real"] = check_agc(rcfg.max_channels, rcfg.hop_batch,
+                                    rhalf, rcfg.audio_sps, rgen)[0]
+
     rows_out += wbfm_kernel_rows(gen)
     # the bench-shape int16 kernel beside the float mode's row (its last)
     rows_out[-1]["int16_bench_kernel_ms"] = agc_int16_row["kernel_ms"]
@@ -1362,6 +1531,73 @@ def phase_small():
           "audio_peak_int16": int(np.abs(results["cpu"][0]).max()),
           "waterfall_max_steps": int(wdiff.max()),
           "waterfall_frac_differing": float((wdiff > 0).mean())})
+
+
+def phase_small_real():
+    """The whole real-input step on the card against the whole step on
+    the CPU (plain versions) at SMALL_REAL_CFG: 16 channels cycling the
+    modes, am_sync on with the AM listener of row 6 on the envelope,
+    views at mixed pyramid levels; 6 'views' then 2 'off' steps.
+    phase_small's tolerances: int16 within 4, the waterfall within one
+    step on < 0.1% of bins; the channel power within rtol 2e-4."""
+    import torch
+
+    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.ops.quantize import pyramid_level_offsets
+    from phantomsdr_tpu_torch.pipeline import (
+        HopPipeline, WaterfallViews, channels_from_numpy, to_device,
+    )
+
+    cfg = config_from_dict(SMALL_REAL_CFG)
+    c, r, lev = cfg.max_channels, cfg.fft_result_size, cfg.downsample_levels
+    l = np.linspace(10, r - 200, c).astype(np.int32)
+    am_env = np.zeros(c, bool)
+    am_env[6] = True
+    offs = pyramid_level_offsets(r, lev)
+    starts = np.array([offs[0] + 100, offs[1] + 5, offs[3] + 7,
+                       offs[lev - 1]], np.int32)
+    lengths = np.array([16, 16, 12, cfg.waterfall_size], np.int32)
+    modes = ["views"] * 6 + ["off"] * 2
+    results = {}
+    for dev in ("cuda", "cpu"):
+        pipe = HopPipeline(cfg, device=dev)
+        table = channels_from_numpy(l, l + 90, l + 45, np.arange(c) % 4,
+                                    np.ones(c, bool), am_env=am_env,
+                                    device=dev)
+        views = WaterfallViews(start=to_device(starts, torch.int32, dev),
+                               length=to_device(lengths, torch.int32, dev))
+        state = pipe.init_state()
+        rng = np.random.default_rng(SEED)
+        audio, pwr, wf = [], [], []
+        for mode in modes:
+            n = (cfg.hop_batch + 1) * pipe.wire_per_hop
+            raw = (rng.integers(-3000, 3000, n)
+                   + 8000 * np.sin(0.13 * np.arange(n))).astype(np.int16)
+            state, out = pipe.step(state, torch.from_numpy(raw).to(dev),
+                                   table, views, mode)
+            audio.append(out.audio.cpu().numpy().astype(int))
+            pwr.append(out.avg_power.cpu().numpy())
+            if mode == "views":
+                wf.append(out.wf.cpu().numpy().astype(int))
+        results[dev] = (np.concatenate(audio), np.concatenate(pwr),
+                        np.concatenate(wf))
+    (ka, kp, kw), (pa, pp, pw) = results["cuda"], results["cpu"]
+    a_err = int(np.abs(ka - pa).max())
+    p_err = float(np.max(np.abs(kp - pp) / (np.abs(pp) + 1e-30)))
+    wdiff = np.abs(kw - pw)
+    peak = int(np.abs(pa).max())
+    if (a_err > 4 or not np.allclose(kp, pp, rtol=2e-4, atol=1e-12)
+            or wdiff.max() > 1 or (wdiff > 0).mean() >= 1e-3
+            or peak <= 100 or not kw.any()):
+        raise AssertionError(f"real card vs CPU step: audio {a_err} (peak "
+                             f"{peak}), power rtol {p_err}, waterfall "
+                             f"{wdiff.max()} on {(wdiff > 0).mean():.2e}")
+    emit({"phase": "small_real", "steps": modes,
+          "audio_max_abs_int16": a_err, "audio_peak_int16": peak,
+          "power_max_rel_err": p_err,
+          "waterfall_max_steps": int(wdiff.max()),
+          "waterfall_frac_differing": float((wdiff > 0).mean()),
+          "waterfall_shape": list(kw.shape)})
 
 
 def warm_wbfm_state(pipe, state):
@@ -1984,6 +2220,89 @@ def phase_main(cfg, tones, stream, kernels):
           "off_step_ms": step_ms[10:],
           "msps": samples / (med * 1e-3) / 1e6,
           "samples_per_step": samples, "due_rows": len(due)})
+    return launches
+
+
+REAL_STEPS = ["views"] * 8 + ["off"] * 2
+
+
+def phase_real(cfg, tones, stream, kernels):
+    """HopPipeline.step at REAL_CFG (bench.py's real profile: s16 real
+    at 70 MSPS, 96 hops a step, 64 channels) over REAL_STEPS on
+    ``tones``' capture; phase_main's criteria: each tone at its Hz within
+    3 Hz over the last 6 steps, the waterfall peak of view 0 on the USB
+    tone's bin in every 'views' step, and K-WF, K-PLL and K-AGC
+    (``kernels``) launched; with the step times and the device-busy
+    share of one 'views' step (torch.profiler)."""
+    import torch
+
+    from phantomsdr_tpu_torch.pipeline import (
+        HopPipeline, WaterfallViews, channels_from_numpy, to_device,
+        waterfall_due_positions,
+    )
+
+    pipe = HopPipeline(cfg, device="cuda")
+    table_np, (starts, lengths) = bench_tables(cfg, tones)
+    table = channels_from_numpy(*table_np, device="cuda")
+    views = WaterfallViews(start=to_device(starts, torch.int32, "cuda"),
+                           length=to_device(lengths, torch.int32, "cuda"))
+    due = waterfall_due_positions(cfg, 0)
+    due_idx = to_device(due, torch.int32, "cuda")
+    state = pipe.init_state()
+    blk = cfg.hop_batch * pipe.wire_per_hop
+    audio, wf, step_ms = [], [], []
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    for s, mode in enumerate(REAL_STEPS):
+        raw = stream[s * blk: s * blk + blk + pipe.wire_per_hop]
+        t0 = time.perf_counter()
+        state, out = pipe.step(state, raw, table, views, mode,
+                               due_idx=due_idx)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        audio.append(out.audio[:, :4].cpu().numpy())
+        if mode == "views":
+            wf.append(out.wf.cpu().numpy())
+        if not bool(torch.isfinite(out.avg_power).all()):
+            raise AssertionError(f"real step {s}: non-finite channel power")
+    launches = {k.name: k.launches for k in kernels}
+
+    res = {}
+    a = np.concatenate(audio)[-6 * cfg.hop_batch:]      # [hops, 4, half]
+    for i, name in enumerate(tones.names):
+        x = a[:, i].reshape(-1).astype(np.float64)
+        want = tones.tone_bins[i] * tones.df
+        got = peak_hz(x, tones.audio_rate)
+        res[name] = {"want_hz": want, "got_hz": got,
+                     "rms": float(np.sqrt(np.mean(x ** 2)))}
+        if abs(got - want) > 3.0 or res[name]["rms"] < 100:
+            raise AssertionError(f"real: {name} tone at {got} Hz (rms "
+                                 f"{res[name]['rms']}), want {want}")
+    # view 0 starts 500 bins below the USB tone (level 0)
+    cents = [max_run_centroid(v[0, :cfg.waterfall_size])
+             for step in wf for v in step]
+    if any(abs(cc - 500) > 1 for cc in cents):
+        raise AssertionError(f"real: waterfall peak off the carrier: "
+                             f"{cents}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"real: a kernel was not launched: {launches}")
+    raw = stream[:blk + pipe.wire_per_hop]
+
+    def one_step():
+        pipe.step(state, raw, table, views, "views", due_idx=due_idx)
+    split = split_device_us(one_step)
+    med = float(np.median(step_ms[1:8]))
+    samples = cfg.hop_batch * cfg.hop_size
+    emit({"phase": "real", "steps": REAL_STEPS, "launches": launches,
+          "tones": res, "waterfall_peak_offsets": sorted(set(cents)),
+          "step_ms": step_ms, "views_step_ms_median": med,
+          "off_step_ms": step_ms[8:], "device_split": split,
+          "device_busy_share": split["total_us"] / 1e3 / med,
+          "msps": samples / (med * 1e-3) / 1e6,
+          "samples_per_step": samples, "due_rows": len(due),
+          "spectrum_bins": cfg.fft_result_size + 1,
+          "levels": cfg.downsample_levels})
     return launches
 
 
@@ -3123,6 +3442,55 @@ def phase_soak_smoke() -> dict:
 
 # --------------------------------- the north-star deployment, served
 
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def phase_bench() -> dict:
+    """``python -m phantomsdr_tpu_torch.bench --profile iq``, then
+    ``--profile real``, as subprocesses in build/bench/ at bench.py's
+    window lengths: each last stdout line must parse with bench.py's
+    four keys and a value > 0, and each details file must show K-WF,
+    K-PLL and K-AGC launched in the timed windows.  Returns the timed
+    windows' launches by path ("bench iq", "bench real")."""
+    import os
+    import shutil
+
+    from phantomsdr_tpu_torch.bench import DETAILS
+
+    workdir = REPO / "build" / "bench"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = {}
+    for profile in ("iq", "real"):
+        t0 = time.monotonic()
+        res = subprocess.run(
+            [sys.executable, "-m", "phantomsdr_tpu_torch.bench",
+             "--profile", profile], capture_output=True, text=True,
+            cwd=workdir, env=env, timeout=300)
+        if res.returncode:
+            raise AssertionError(f"bench {profile}: rc {res.returncode}\n"
+                                 f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        det = json.loads((workdir / DETAILS[profile]).read_text())
+        emit({"phase": "bench", "profile": profile, **line,
+              **{k: det[k] for k in ("windows_msps", "ingest_msps",
+                                     "ingest_msps_windows", "step_ms",
+                                     "hop_batch", "channels", "card",
+                                     "launches", "ingest_launches")},
+              "stderr": [x for x in res.stderr.splitlines()
+                         if x.startswith("#")],
+              "seconds": time.monotonic() - t0})
+        if list(line) != BENCH_KEYS or not line["value"] > 0:
+            raise AssertionError(f"bench {profile}: last line {line}")
+        if min(det["launches"][k] for k in ("waterfall", "pll", "agc")) <= 0:
+            raise AssertionError(f"bench {profile}: a kernel was not "
+                                 f"launched: {det['launches']}")
+        out[f"bench {profile}"] = det["launches"]
+    return out
+
+
 def phase_ingest() -> dict:
     """tools/torch_ingest_bench.py on the card at the bench config's
     block (36 hops of 2^19 IQ pairs, u8): the read, upload and overlap
@@ -3165,21 +3533,26 @@ def proc_stat(pid: int) -> dict:
             "threads": int(fields[17]), "rss_kb": rss}
 
 
-async def steady_listener(session, url: str, chan, mode: str, stop, rec):
-    """One listener on a tone's channel in ``mode`` from its session's
-    start: every audio payload with its arrival time into ``rec``."""
+async def steady_listener(session, url: str, tune, mode: str | None, stop,
+                          rec):
+    """One listener from its session's start: tuned to ``tune(info)``
+    ((l, r, m) from the server's basic_info) in ``mode``, or left on the
+    server's default window and mode where ``tune`` gives None; every
+    audio payload with its arrival time into ``rec``."""
     import aiohttp
 
     from tools.torch_clients import cbor_decode
 
-    l, r, m = chan
     async with session.ws_connect(url + "/audio",
                                   max_msg_size=1 << 22) as ws:
-        json.loads((await ws.receive(timeout=60)).data)
-        await ws.send_str(json.dumps({"cmd": "window", "l": int(l),
-                                      "m": float(m), "r": int(r)}))
-        await ws.send_str(json.dumps({"cmd": "demodulation",
-                                      "demodulation": mode}))
+        info = json.loads((await ws.receive(timeout=60)).data)
+        chan = rec["window"] = tune(info)
+        if chan is not None:
+            l, r, m = chan
+            await ws.send_str(json.dumps({"cmd": "window", "l": int(l),
+                                          "m": float(m), "r": int(r)}))
+            await ws.send_str(json.dumps({"cmd": "demodulation",
+                                          "demodulation": mode}))
         while not stop.is_set():
             try:
                 msg = await ws.receive(timeout=1)
@@ -3193,10 +3566,11 @@ async def steady_listener(session, url: str, chan, mode: str, stop, rec):
                 return
 
 
-async def steady_waterfall(session, url: str, l: int, width: int, stop,
+async def steady_waterfall(session, url: str, tune, width: int, stop,
                            rec):
-    """One waterfall client on [l, l + width) at full resolution: each
-    row's decoded bytes with its labelled l into ``rec``."""
+    """One waterfall client on [l, l + width) at full resolution, l =
+    ``tune(info)`` from the server's basic_info: each row's decoded bytes
+    with its labelled l into ``rec``."""
     import aiohttp
 
     from phantomsdr_tpu_torch.runtime.codecs import ZstdDecompressStream
@@ -3205,7 +3579,8 @@ async def steady_waterfall(session, url: str, l: int, width: int, stop,
     dec = ZstdDecompressStream()
     async with session.ws_connect(url + "/waterfall",
                                   max_msg_size=1 << 22) as ws:
-        json.loads((await ws.receive(timeout=60)).data)
+        info = json.loads((await ws.receive(timeout=60)).data)
+        l = rec["l"] = int(tune(info))
         await ws.send_str(json.dumps({"cmd": "window", "l": l,
                                       "r": l + width}))
         while not stop.is_set():
@@ -3228,11 +3603,25 @@ def flac_samples(payloads: list[bytes]) -> np.ndarray:
     return decode_flac(b"".join(payloads))[1]
 
 
-async def serve_window(port: int, cfg, tones, feeder, srv) -> dict:
-    """The clients of serve_full against the server at ``port``: the
-    four steady tone listeners and the waterfall client, then
-    tools/torch_stress.py in its own process; /metrics, the feeder and
-    the server process read at the window's start and end."""
+class Steady(NamedTuple):
+    """A steady listener of a served deployment: ``tune(basic_info)``
+    gives its (l, r, m), or None for the default window and mode; its
+    audio must carry ``want_hz``."""
+
+    name: str
+    mode: str | None
+    tune: object
+    want_hz: float
+
+
+async def serve_window(port: int, feeder, srv, steady, wf_tune,
+                       wf_width: int, secs: float) -> dict:
+    """The clients of a served deployment against the server at
+    ``port``: the ``steady`` listeners and the waterfall client on
+    ``wf_tune(basic_info)``, ``wf_width`` bins wide, then
+    tools/torch_stress.py in its own process for ``secs``; /metrics,
+    the feeder and the server process read at the window's start and
+    end."""
     import concurrent.futures
     import multiprocessing
 
@@ -3244,9 +3633,8 @@ async def serve_window(port: int, cfg, tones, feeder, srv) -> dict:
     url = f"http://127.0.0.1:{port}"
     stop = asyncio.Event()
     lags: list[float] = []
-    recs = [{"pkts": [], "closed": False} for _ in MODE_NAMES]
+    recs = [{"pkts": [], "closed": False} for _ in steady]
     wf_rec = {"rows": [], "closed": False}
-    wf_l = tones.usb_bin - 500
     samples = []
     async with aiohttp.ClientSession(
             connector=aiohttp.TCPConnector(limit=0)) as s:
@@ -3257,15 +3645,15 @@ async def serve_window(port: int, cfg, tones, feeder, srv) -> dict:
 
         tasks = [asyncio.create_task(loop_lag(stop, lags))]
         tasks += [asyncio.create_task(steady_listener(
-            s, url, tones.chans[i], mode, stop, recs[i]))
-            for i, mode in enumerate(MODE_NAMES)]
+            s, url, st.tune, st.mode, stop, rec))
+            for st, rec in zip(steady, recs)]
         tasks.append(asyncio.create_task(steady_waterfall(
-            s, url, wf_l, cfg.waterfall_size, stop, wf_rec)))
+            s, url, wf_tune, wf_width, stop, wf_rec)))
         t_feed = time.monotonic()
         await asyncio.sleep(SERVE_WARM_SECS - 2)
         proc = await asyncio.create_subprocess_exec(
             sys.executable, "tools/torch_stress.py", "--url",
-            f"ws://127.0.0.1:{port}", "--secs", str(SERVE_SECS),
+            f"ws://127.0.0.1:{port}", "--secs", str(secs),
             *SERVE_STRESS, cwd=REPO, stdout=asyncio.subprocess.PIPE,
             stderr=asyncio.subprocess.PIPE)
         stress_err = []
@@ -3279,8 +3667,8 @@ async def serve_window(port: int, cfg, tones, feeder, srv) -> dict:
         feeder.mark()
         t0 = time.monotonic()
         m0, p0 = await metrics(), proc_stat(srv.pid)
-        while time.monotonic() - t0 < SERVE_SECS - 0.5:
-            await asyncio.sleep(min(5.0, SERVE_SECS - 0.5
+        while time.monotonic() - t0 < secs - 0.5:
+            await asyncio.sleep(min(5.0, secs - 0.5
                                     - (time.monotonic() - t0)))
             samples.append(await metrics())
         m1, p1 = await metrics(), proc_stat(srv.pid)
@@ -3295,7 +3683,7 @@ async def serve_window(port: int, cfg, tones, feeder, srv) -> dict:
     try:
         res = json.loads(out)
     except ValueError:
-        raise AssertionError(f"serve_full: torch_stress rc "
+        raise AssertionError(f"serve: torch_stress rc "
                              f"{proc.returncode}\n{out[-3000:]!r}\n"
                              f"{''.join(stress_err)}{err[-3000:]!r}")
     # each steady stream decoded from its session's start, in parallel
@@ -3319,39 +3707,39 @@ async def serve_window(port: int, cfg, tones, feeder, srv) -> dict:
                             "max": max(lags, default=None)}}
 
 
-def phase_serve_full(tones, pool: bytes) -> dict:
-    """The north-star deployment through the CLI on the card: the bench
-    config (u8 IQ at 35 MSPS, 2^20-point FFT, 36 hops a step, 128
-    channels, 12 kHz FLAC audio, zstd waterfall 1024) as a TOML file
-    read from stdin by ``python -m phantomsdr_tpu_torch --device cuda``
-    on a free port (killed by its PID), fed at 70 MB/s by a PipeFeeder
-    from ``pool`` (4 blocks of ``tones``), served to serve_window's
-    clients: tools/torch_stress.py's 100 churning audio and 28 waterfall
-    clients (half on deflate, every 10th decoding) for SERVE_SECS and
-    beside them a steady listener on each tone (USB, LSB, AM with the
-    PLL, FM) and a waterfall client on the USB carrier.  Passes when the
-    feed holds its rate, the server sustains it, nothing errs or is
-    dropped, every steady listener gets its packets and its tone, the
-    waterfall peaks on the carrier and K-WF, K-PLL and K-AGC ran.
-    Returns the kernels' launches in the window."""
+def serve_cli(name: str, config_text: str, cfg, tones, pool: bytes,
+              steady: list[Steady], wf_tune, secs: float,
+              feed_mbps_bar: float, lag_bar_ms: float) -> dict:
+    """A deployment through the CLI on the card: ``python -m
+    phantomsdr_tpu_torch --device cuda`` on ``config_text`` (written to
+    build/<name>/config.toml; a free port in its [server] table, the
+    wire read from stdin) fed at the config's wire rate by a PipeFeeder
+    from ``pool`` (whole blocks of ``tones``), served to serve_window's
+    clients for ``secs``.  It must hold: the feed at >= ``feed_mbps_bar``
+    MB/s with its longest lag under ``lag_bar_ms``, the config's rate
+    within 2% from /metrics over the window, no device error, no
+    dropped encode, a dispatch p99 under a block's real time, no client
+    or decode error, each steady listener at >= 0.95 of the packet rate
+    the step cadence implies with its tone at its Hz within 3 Hz (rms >=
+    100), the waterfall peak on the USB carrier in every row, and K-WF,
+    K-PLL and K-AGC launched in the window.  Emits the phase line (the
+    server's CPU seconds a second, threads, RSS, device memory, step
+    time, device-busy share and encode queue depth beside the bars) and
+    returns the kernels' launches in the window."""
     import inspect
     import shutil
 
-    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.ops.convert import wire_dtype
     from phantomsdr_tpu_torch.runtime.codecs import FlacEncoder
     from tools.torch_clients import PipeFeeder
 
-    cfg = config_from_dict(BENCH_CFG)
-    workdir = REPO / "build" / "serve_full"
+    workdir = REPO / "build" / name
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
-    port = free_ports(1)[0]
-    conf = {"server": {"port": port}, **BENCH_CFG,
-            "input": {**BENCH_CFG["input"], "audio_compression": "flac",
-                      "waterfall_compression": "zstd",
-                      "driver": {"name": "stdin", "format": "u8"}}}
-    (workdir / "config.toml").write_text(toml_text(conf))
-    wire_rate = 2 * cfg.sps             # u8 IQ: two bytes a sample
+    (workdir / "config.toml").write_text(config_text)
+    port = cfg.port
+    wire_rate = (cfg.sps * (1 if cfg.is_real else 2)
+                 * wire_dtype(cfg.input_format).itemsize)
     log = open(workdir / "server.log", "wb")
     t_start = time.monotonic()
     srv = subprocess.Popen(
@@ -3370,13 +3758,14 @@ def phase_serve_full(tones, pool: bytes) -> dict:
                 pass
             if srv.poll() is not None or time.monotonic() > deadline:
                 raise AssertionError(
-                    "serve_full: the CLI never served\n" + (
+                    f"{name}: the CLI never served\n" + (
                         workdir / "server.log").read_text(
                         errors="replace")[-3000:])
             time.sleep(0.25)
         t_serving = time.monotonic() - t_start
         feeder.mark()           # no catch-up burst for the start's lag
-        w = asyncio.run(serve_window(port, cfg, tones, feeder, srv))
+        w = asyncio.run(serve_window(port, feeder, srv, steady, wf_tune,
+                                     cfg.waterfall_size, secs))
     finally:
         feeder.stop()
         srv.stdin.close()       # EOF: the reader thread ends
@@ -3401,9 +3790,9 @@ def phase_serve_full(tones, pool: bytes) -> dict:
                 for k, n in m1["kernel_launches"].items()}
     failed = []
     fed = w["fed"]
-    if fed["mbps"] < wire_rate / 1e6 * 69 / 70 or fed["error"]:
+    if fed["mbps"] < feed_mbps_bar or fed["error"]:
         failed.append(f"feeder at {fed['mbps']:.3f} MB/s ({fed['error']})")
-    if fed["max_lag_ms"] >= 1e3 / steps_s:
+    if fed["max_lag_ms"] >= lag_bar_ms:
         failed.append(f"feeder lag {fed['max_lag_ms']:.1f} ms")
     if abs(msps - cfg.sps / 1e6) > 0.02 * cfg.sps / 1e6:
         failed.append(f"sustained {msps:.4f} MSPS")
@@ -3425,30 +3814,29 @@ def phase_serve_full(tones, pool: bytes) -> dict:
                       f"{w['client_errors']}")
     tones_out = {}
     rate = tones.audio_rate     # the stream's true rate (basic_info: 12000)
-    for i, (name, rec, x) in enumerate(zip(MODE_NAMES, w["recs"],
-                                           w["decoded"])):
+    for lis, rec, x in zip(steady, w["recs"], w["decoded"]):
         n_win = sum(w["t0"] <= t <= w["t1"] for t, _ in rec["pkts"])
         pkts_s = n_win / wall
         row = {"pkts_per_s": pkts_s, "want_pkts_per_s": want_pkts,
-               "closed": rec["closed"]}
+               "closed": rec["closed"], "window": rec.get("window")}
         if isinstance(x, Exception):
             row["decode_error"] = repr(x)
-            failed.append(f"{name}: FLAC stream {x!r}")
+            failed.append(f"{lis.name}: FLAC stream {x!r}")
         else:
             a = x.astype(np.float64)[int(SERVE_SETTLE_SECS * rate):]
-            row.update(want_hz=tones.tone_bins[i] * tones.df,
+            row.update(want_hz=lis.want_hz,
                        got_hz=peak_hz(a, rate) if a.size else None,
                        rms=float(np.sqrt(np.mean(a ** 2))) if a.size
                        else 0.0, samples=int(x.size))
             if row["got_hz"] is None \
                     or abs(row["got_hz"] - row["want_hz"]) > 3.0 \
                     or row["rms"] < 100:
-                failed.append(f"{name} tone {row}")
+                failed.append(f"{lis.name} tone {row}")
         if pkts_s < 0.95 * want_pkts or rec["closed"]:
-            failed.append(f"{name}: {pkts_s:.3f} packets/s of "
+            failed.append(f"{lis.name}: {pkts_s:.3f} packets/s of "
                           f"{want_pkts:.3f}")
-        tones_out[name] = row
-    wl = tones.usb_bin - 500
+        tones_out[lis.name] = row
+    wl = w["wf"].get("l")
     rows = [r for l, _, r in w["wf"]["rows"] if l == wl and r.size]
     cents = sorted({max_run_centroid(r) for r in rows})
     wf_ok = sum(abs(max_run_centroid(r) - 500) <= 1 for r in rows)
@@ -3461,15 +3849,19 @@ def phase_serve_full(tones, pool: bytes) -> dict:
     depth = [m.get("encode_queue_depth", 0) for m in w["samples"] + [m1]]
     r = {
         "config": {"sps": cfg.sps, "fft_size": cfg.fft_size,
+                   "signal": "real" if cfg.is_real else "iq",
                    "hop_batch": cfg.hop_batch,
                    "max_channels": cfg.max_channels,
                    "audio_sps": cfg.audio_sps,
                    "waterfall_size": cfg.waterfall_size,
                    "format": cfg.input_format, "skip_num": cfg.skip_num,
+                   "levels": cfg.downsample_levels,
                    "threads": cfg.threads},
         "seconds_to_serve": t_serving,
         "window_s": wall, "feeder": fed,
         "wire_mbps_target": wire_rate / 1e6,
+        "feed_mbps_bar": feed_mbps_bar, "lag_bar_ms": lag_bar_ms,
+        "block_ms": 1e3 / steps_s,
         "msps_window": msps, "msps_sustained": m1["msps_sustained"],
         "msps_device": m1["msps_device"],
         "step_ms_p50": m1["step_ms_p50"], "steps": steps,
@@ -3478,8 +3870,10 @@ def phase_serve_full(tones, pool: bytes) -> dict:
         "dispatch_ms_p99": m1.get("dispatch_ms_p99"),
         "device_errors": m1["device_errors"],
         "encode_dropped": m1["encode_dropped"],
+        "encode_dropped_by_sample": [m0["encode_dropped"]] + [
+            m["encode_dropped"] for m in w["samples"] + [m1]],
         "encode_queue_depth": {"end": m1["encode_queue_depth"],
-                               "max": max(depth)},
+                               "max": max(depth), "samples": depth},
         "audio_clients_end": m1["audio_clients"],
         "waterfall_clients_end": m1["waterfall_clients"],
         "server_cpu_s_per_s": cpu, "server_threads": w["p1"]["threads"],
@@ -3490,13 +3884,101 @@ def phase_serve_full(tones, pool: bytes) -> dict:
         "stress": {k: v for k, v in st.items() if k != "server_metrics"},
         "smoke_loop_lag_ms": w["loop_lag_ms"],
         "steady": tones_out,
-        "waterfall": {"rows": len(rows), "on_carrier": wf_ok,
+        "waterfall": {"l": wl, "rows": len(rows), "on_carrier": wf_ok,
                       "centroids": cents[:8]},
         "launches": launches, "failed": failed}
-    emit({"phase": "serve_full", **r})
+    emit({"phase": name, **r})
     if failed:
-        raise AssertionError(f"serve_full: {failed}")
+        raise AssertionError(f"{name}: {failed}")
     return launches
+
+
+def phase_serve_full(tones, pool: bytes) -> dict:
+    """The north-star deployment through the CLI on the card: the bench
+    config (u8 IQ at 35 MSPS, 2^20-point FFT, 36 hops a step, 128
+    channels, 12 kHz FLAC audio, zstd waterfall 1024) fed at 70 MB/s
+    from ``pool`` (4 blocks of ``tones``), served for SERVE_SECS to
+    tools/torch_stress.py's 100 churning audio and 28 waterfall clients
+    (half on deflate, every 10th decoding) and beside them a steady
+    listener on each tone (USB, LSB, AM with the PLL, FM) and a
+    waterfall client on the USB carrier; serve_cli's bars, the feed at
+    >= 69 MB/s with no lag of a block (539 ms).  Returns the kernels'
+    launches in the window."""
+    from phantomsdr_tpu_torch.config import config_from_dict
+
+    port = free_ports(1)[0]
+    conf = {"server": {"port": port}, **BENCH_CFG,
+            "input": {**BENCH_CFG["input"], "audio_compression": "flac",
+                      "waterfall_compression": "zstd",
+                      "driver": {"name": "stdin", "format": "u8"}}}
+    cfg = config_from_dict(conf)
+    steady = [Steady(name, name, lambda info, c=chan: c,
+                     tones.tone_bins[i] * tones.df)
+              for i, (name, chan) in enumerate(zip(MODE_NAMES,
+                                                   tones.chans))]
+    block_ms = 1e3 * cfg.hop_batch * cfg.hop_size / cfg.sps
+    return serve_cli("serve_full", toml_text(conf), cfg, tones, pool,
+                     steady, lambda info: tones.usb_bin - 500, SERVE_SECS,
+                     feed_mbps_bar=2 * cfg.sps / 1e6 * 69 / 70,
+                     lag_bar_ms=block_ms)
+
+
+RX888_SECS = 30             # serve_rx888's stress window
+
+
+def phase_serve_rx888(tones, pool: bytes) -> dict:
+    """The RX888 deployment the repository ships through the CLI on the
+    card: configs/config.example.rx888.toml as shipped (s16 real at 70
+    MSPS, 2^20-point FFT, 12 hops a step, 128 channels, waterfall 2048,
+    the LSB default at 7.1 MHz), copied to build/serve_rx888/ only to set
+    a free port, read from stdin and fed at 140 MB/s from ``pool`` (4
+    blocks of ``tones``, RealTones); for RX888_SECS tools/torch_stress.py's
+    100 churning audio and 28 waterfall clients, beside them one steady
+    listener per tone tuned by the real-input mapping
+    (tools/torch_clients.hz_to_bin on basic_info), one on the default
+    LSB window, which holds the LSB tone, and a waterfall client on the
+    USB carrier.  serve_cli's bars with serve_full's numbers taken over:
+    the feed at >= 138.6 MB/s (99%) with its longest lag under 539 ms,
+    70 MSPS within 2%, the dispatch p99 under one block (89.9 ms).
+    Returns the kernels' launches in the window."""
+    import re
+
+    from phantomsdr_tpu_torch.config import load_config
+    from tools.torch_clients import hz_to_bin, hz_to_bins
+
+    shipped = (REPO / "configs" / "config.example.rx888.toml").read_text()
+    port = free_ports(1)[0]
+    text, k = re.subn(r"(?m)^port\s*=\s*\d+$", f"port={port}", shipped)
+    if k != 1:
+        raise AssertionError("serve_rx888: no [server] port line")
+    cfg = load_config(str(REPO / "configs" / "config.example.rx888.toml"))
+    cfg.port = port
+
+    def tuned(mode: str, f_hz: float):
+        def tune(info):
+            m = hz_to_bin(info, f_hz)
+            if mode == "USB":
+                return int(m), int(hz_to_bin(info, f_hz + 3000)), m
+            if mode == "LSB":
+                return int(hz_to_bin(info, f_hz - 3000)), int(m), m
+            off = hz_to_bins(info, 5000)
+            return int(m - off), int(m + off), m
+        return tune
+
+    steady = [Steady(name, name, tuned(name, tones.m[i] * tones.df),
+                     tones.tone_bins[i] * tones.df)
+              for i, name in enumerate(MODE_NAMES)]
+    # the server's own default: LSB at 7.1 MHz, no window command
+    steady.append(Steady("LSB default", None, lambda info: None,
+                         tones.tone_bins[1] * tones.df))
+
+    def wf_tune(info):
+        return round(hz_to_bin(info, tones.usb_bin * tones.df)) - 500
+
+    return serve_cli("serve_rx888", text, cfg, tones, pool, steady,
+                     wf_tune, RX888_SECS,
+                     feed_mbps_bar=2 * cfg.sps / 1e6 * 0.99,
+                     lag_bar_ms=1e3 * 36 * (1 << 19) / 35_000_000)
 
 
 def main() -> int:
@@ -3509,7 +3991,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--multihost-worker"]:
         pid, workdir, coord, link_port = sys.argv[2:6]
         return mh_worker(int(pid), workdir, int(coord), int(link_port))
-    from phantomsdr_tpu_torch.config import config_from_dict
+    from phantomsdr_tpu_torch.config import config_from_dict, load_config
     from phantomsdr_tpu_torch.ops.cuda import (
         agc, anr, deemph, nb, nr, pilot, pll, waterfall,
     )
@@ -3533,7 +4015,21 @@ def main() -> int:
     phase_small()
     phase_small_wbfm()
     phase_small_nr()
+    phase_small_real()
     launches = phase_main(cfg, tones, stream, main_kernels)
+    # the real-input path at full width: bench.py's real profile
+    real_cfg = config_from_dict(REAL_CFG)
+    real_tones = RealTones(real_cfg)
+    rgen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rblk = real_cfg.hop_batch * real_cfg.hop_size
+    real_stream = torch.cat(
+        [real_tones.real(s * rblk, rblk, rgen)
+         for s in range(len(REAL_STEPS))]
+        + [real_tones.real(len(REAL_STEPS) * rblk, real_cfg.hop_size,
+                           rgen)])
+    real_launches = phase_real(real_cfg, real_tones, real_stream,
+                               main_kernels)
+    del real_stream
     # mesh server mode: the bench config as 4 shards on this card
     mesh_cfg = config_from_dict({"input": BENCH_CFG["input"],
                                  "tpu": {**BENCH_CFG["tpu"],
@@ -3565,6 +4061,15 @@ def main() -> int:
     # fed on stdin at 35 MSPS, serving 100 listeners and 28 waterfalls
     phase_ingest()
     tool_launches["serve_full"] = phase_serve_full(tones, host_bytes)
+    # the port's bench.py, both profiles, then the RX888 deployment the
+    # repository ships, fed at 70 MSPS of s16 real
+    tool_launches.update(phase_bench())
+    rx_cfg = load_config(str(REPO / "configs" /
+                             "config.example.rx888.toml"))
+    rx_tones = RealTones(rx_cfg)
+    rx_pool = rx_tones.real(0, 4 * rx_cfg.hop_batch * rx_cfg.hop_size,
+                            rgen).cpu().numpy().tobytes()
+    tool_launches["serve_rx888"] = phase_serve_rx888(rx_tones, rx_pool)
 
     # each kernel's launches on its path: the bench-config main phase
     # for K-WF, K-PLL and K-AGC (beside them, the mesh phase's), the
@@ -3586,6 +4091,7 @@ def main() -> int:
         row["launches_path"] = path
         row["launches_by_path"] = {
             "main": launches.get(k.name, 0),
+            "real": real_launches.get(k.name, 0),
             "mesh": mesh_launches.get(k.name, 0),
             **{f"multihost p{p}": n.get(k.name, 0)
                for p, n in mh_launches.items()},

@@ -122,54 +122,63 @@ class EncodePool:
     encoder single-threaded and its packet order intact with zero locks;
     ctypes releases the GIL during the native encode, so workers run in
     parallel.  Finished packets hop back to the event loop in one
-    call_soon_threadsafe per job."""
+    call_soon_threadsafe per job.
+
+    A data job that has waited more than MAX_LAG_S when its worker
+    reaches it is dropped (the slow-encoder analogue of the 50 kB socket
+    gate): a bound in time, not in jobs, so that it means the same at
+    every step rate.  (The JAX package bounds each queue at 256 jobs:
+    about 1.3 s of a bench-config server's 104 listeners and 28
+    waterfalls at 1.85 steps a second, but under two steps, 0.17 s, at
+    the RX888 config's 11 steps a second, where one event-loop stall of
+    a tenth of a second dropped audio while the worker idled most of
+    the time.)"""
+
+    MAX_LAG_S = 1.0
 
     def __init__(self, workers: int):
         self.n = max(1, workers)
         self.queues: list[queue.Queue] = [
-            queue.Queue(maxsize=256) for _ in range(self.n)]
-        self.dropped = 0
+            queue.Queue() for _ in range(self.n)]
+        self._dropped = [0] * self.n
         self._threads = [
-            threading.Thread(target=self._run, args=(q,), daemon=True,
+            threading.Thread(target=self._run, args=(i,), daemon=True,
                              name=f"encode-{i}")
-            for i, q in enumerate(self.queues)
+            for i in range(self.n)
         ]
         for t in self._threads:
             t.start()
 
-    def _run(self, q: queue.Queue):
+    def _run(self, i: int):
+        q = self.queues[i]
         while True:
-            fn = q.get()
-            if fn is None:
+            item = q.get()
+            if item is None:
                 return
+            t_submit, fn, droppable = item
+            if droppable and time.monotonic() - t_submit > self.MAX_LAG_S:
+                self._dropped[i] += 1
+                continue
             try:
                 fn()
             except Exception:
                 traceback.print_exc()
 
-    def submit(self, key: int, fn) -> bool:
-        """Enqueue fn on the worker owning `key`; drop when saturated
-        (slow-encoder analogue of the 50 kB socket gate)."""
-        try:
-            self.queues[key % self.n].put_nowait(fn)
-            return True
-        except queue.Full:
-            self.dropped += 1
-            return False
+    def submit(self, key: int, fn) -> None:
+        """Enqueue data job fn on the worker owning `key`; the worker
+        drops it if it has waited more than MAX_LAG_S by then."""
+        self.queues[key % self.n].put_nowait((time.monotonic(), fn, True))
 
     def submit_control(self, key: int, fn) -> None:
         """Enqueue a rare control op (e.g. a compression swap) that must
-        NOT be shed under saturation: data jobs are droppable, but a
+        NOT be shed however long it waits: data jobs are droppable, but a
         dropped swap loses its protocol ack and the client waits on it
-        forever.  On a full queue the blocking put happens on a side
-        thread so the asyncio event loop never stalls; FIFO order vs
-        jobs submitted afterwards is not required (pre-swap rows are
-        dropped client-side until the ack arrives anyway)."""
-        q = self.queues[key % self.n]
-        try:
-            q.put_nowait(fn)
-        except queue.Full:
-            threading.Thread(target=q.put, args=(fn,), daemon=True).start()
+        forever."""
+        self.queues[key % self.n].put_nowait((time.monotonic(), fn, False))
+
+    @property
+    def dropped(self) -> int:
+        return sum(self._dropped)
 
     @property
     def depth(self) -> int:

@@ -256,3 +256,41 @@ def test_driver_delivers_wbfm_layout_and_rds():
         assert audio.shape == (2, 2 * cfg.hop_batch * half // 4)
         assert rds.shape == (2, 2, driver.pipe.rds_t) and not rds[1].any()
         assert wf is None and np.isfinite(pwr).all()
+
+
+def test_encode_pool_bounds_a_jobs_wait_not_the_queue(monkeypatch):
+    """A burst of many steps' jobs is encoded, none dropped (the JAX
+    package's 256-job queue would shed most of this one); a data job that
+    waited past MAX_LAG_S behind a stalled worker is dropped, a control
+    op never; order on one worker is kept."""
+    import threading
+
+    from phantomsdr_tpu_torch.runtime.server import EncodePool
+
+    pool = EncodePool(2)
+    try:
+        ran, done = [], threading.Event()
+        for i in range(1000):
+            pool.submit(i % 2, lambda i=i: ran.append(i))
+        pool.submit_control(0, done.set)
+        pool.submit_control(1, lambda: None)
+        assert done.wait(10)
+        deadline = time.monotonic() + 10
+        while len(ran) < 1000 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert pool.dropped == 0 and sorted(ran) == list(range(1000))
+        assert [i for i in ran if i % 2 == 0] == list(range(0, 1000, 2))
+
+        monkeypatch.setattr(EncodePool, "MAX_LAG_S", 0.05)
+        late, ctl = [], threading.Event()
+        pool.submit(0, lambda: time.sleep(0.3))      # the stall
+        for i in range(5):
+            pool.submit(0, lambda i=i: late.append(i))
+        pool.submit_control(0, ctl.set)
+        pool.submit(1, lambda: late.append("other worker"))
+        assert ctl.wait(10)
+        time.sleep(0.05)
+        assert late == ["other worker"] and pool.dropped == 5
+        assert pool.depth == 0
+    finally:
+        pool.stop()

@@ -26,7 +26,8 @@ This module keeps its own copies:
   tone at its Hz through the FLAC stream, the waterfall peak on its
   carrier, the probes that must not kill the stream, /events), on
   ``collect_audio``, which tools/torch_verify.py shares for the other
-  variants.
+  variants; it tunes through ``hz_to_bin``, so it also checks a
+  real-input server.
 """
 
 from __future__ import annotations
@@ -658,6 +659,26 @@ def seeded_pool(nbytes: int, seed: int) -> np.ndarray:
 
 # ------------------------------------------------------------- tone check
 
+def hz_to_bin(info: dict, f_hz: float) -> float:
+    """The (fractional) display bin of the frequency ``f_hz`` Hz above
+    the server's ``[input] frequency``, from its basic_info: for IQ
+    input that frequency is the band's centre and bin 0 lies at
+    basefreq = frequency - sps/2, so the bin is (0.5 + f/sps) * R; for
+    real input it is bin 0 itself (basefreq = frequency), and the bin is
+    f * 2R / sps.  In both, basefreq + bin * total_bandwidth / R is the
+    frequency again, the frontend's mapping."""
+    r, sps = info["fft_result_size"], info["sps"]
+    if info["total_bandwidth"] == sps:      # IQ: the whole sps shown
+        return (0.5 + f_hz / sps) * r
+    return f_hz * 2 * r / sps
+
+
+def hz_to_bins(info: dict, hz: int) -> int:
+    """Whole display bins in ``hz`` Hz of bandwidth (a window's half
+    width): hz * R // sps for IQ, hz * 2R // sps for real input."""
+    return hz * info["fft_result_size"] // info["total_bandwidth"]
+
+
 def _row_peak(raw, hl, hr):
     """tools/verify/client.py's row_peak: the centroid of the max-valued
     run of a row whose wire coords are [hl, hr); (peak_bin, scale)."""
@@ -715,7 +736,7 @@ async def _check_waterfall(session, url, truth):
                                   max_msg_size=1 << 22) as ws:
         info = json.loads((await ws.receive(timeout=120)).data)
         rsize = info["fft_result_size"]
-        m_bin = (0.5 + truth["f_off_hz"] / truth["sps"]) * rsize
+        m_bin = hz_to_bin(info, truth["f_off_hz"])
         span = min(2048, rsize)
         l = int(max(0, min(rsize - span, m_bin - span / 2)))
         await ws.send_str(json.dumps({"cmd": "window", "l": l,
@@ -743,7 +764,9 @@ async def _check_waterfall(session, url, truth):
 async def tone_check(url: str, truth: dict, secs: float = 8.0) -> dict:
     """tools/verify/client.py's ``tone`` variant against a server at
     ``url`` serving ``captures.py --variant tone``'s capture (FLAC audio,
-    zstd waterfall); raises AssertionError on a miss."""
+    zstd waterfall); raises AssertionError on a miss.  ``truth`` names
+    the AM carrier by ``f_off_hz``, Hz above the server's ``[input]
+    frequency`` (``hz_to_bin``): IQ or real input alike."""
     import aiohttp
 
     async with aiohttp.ClientSession(
@@ -754,9 +777,8 @@ async def tone_check(url: str, truth: dict, secs: float = 8.0) -> dict:
         assert info["sps"] == truth["sps"], info["sps"]
         assert info.get("audio_compression", "flac") == "flac"
         fs = info["audio_max_sps"]
-        rsize = info["fft_result_size"]
-        m = (0.5 + truth["f_off_hz"] / truth["sps"]) * rsize
-        off = 5_000 * rsize // truth["sps"]
+        m = hz_to_bin(info, truth["f_off_hz"])
+        off = hz_to_bins(info, 5_000)
         cmds = [{"cmd": "window", "l": int(m - off), "m": m,
                  "r": int(m + off)},
                 {"cmd": "demodulation", "demodulation": "AM"}]

@@ -71,7 +71,7 @@ def bench(args) -> dict:
     from phantomsdr_tpu_torch.pipeline import to_device
     from phantomsdr_tpu_torch.runtime.driver import SampleSource, _Fetch
     from tools.torch_clients import feed_pipe, seeded_pool
-    from tools.torch_profile import card_line
+    from phantomsdr_tpu_torch.bench import card_line
 
     cfg = config_from_dict({
         "input": {

@@ -54,7 +54,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -64,6 +63,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from phantomsdr_tpu_torch.bench import card_line  # noqa: E402
+
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA H100 SXM data sheet
 POOL_BYTES = 100 << 20          # twice the H100's 50 MB L2
 REPS = 10                       # spun single calls whose median is a time
@@ -72,17 +73,6 @@ MAIN_STAGES = ("fft_batch", "waterfall_pyramid", "channelizer_demod",
                "dc_agc")
 OPTIN_STAGES = ("stereo_decode", "nr_spectral", "nr_lms", "nb_blanker",
                 "rds_downmix", "stereo_plus_rds_shared")
-
-
-def card_line() -> str | None:
-    """nvidia-smi's name and power limit of the card, or None."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip().splitlines()[0]
-    except (OSError, IndexError, subprocess.TimeoutExpired):
-        return None
 
 
 class Pool:

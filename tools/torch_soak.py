@@ -167,7 +167,7 @@ async def soak(args) -> dict:
     import aiohttp
 
     from tools.torch_clients import audio_client, new_stats, wf_client
-    from tools.torch_profile import card_line
+    from phantomsdr_tpu_torch.bench import card_line
 
     out = Path(args.dir)
     port = args.port or free_port()

@@ -157,7 +157,7 @@ def main() -> int:
     args = parser().parse_args()
     card = None
     if args.device == "cuda":
-        from tools.torch_profile import card_line
+        from phantomsdr_tpu_torch.bench import card_line
 
         card = card_line()
         if card is None:
