@@ -266,7 +266,7 @@ def test_multihost_three_process_serving(tmp_path):
             wait_metrics(procs, metrics, lambda m: m["frames"] >= 3 * hop,
                          120, tmp_path, which=which)
 
-        async def listen(port):
+        async def listen(port, synced):
             import aiohttp
 
             loop = asyncio.get_running_loop()
@@ -298,12 +298,16 @@ def test_multihost_three_process_serving(tmp_path):
                             st = json.loads(msg.data)
                             if st.get("signal_clients") == 3:
                                 break
+                    # no listener leaves its slot until every one has
+                    # seen all three
+                    await asyncio.wait_for(synced.wait(), 60)
                     async with s.get(url + "/metrics") as r:
                         st["local"] = json.loads(await r.text())
                     return st
 
         async def drive():
-            return await asyncio.gather(*(listen(p) for p in ports))
+            synced = asyncio.Barrier(3)
+            return await asyncio.gather(*(listen(p, synced) for p in ports))
 
         states = asyncio.run(drive())
         for st in states:

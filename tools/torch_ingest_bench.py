@@ -102,7 +102,9 @@ def bench(args) -> dict:
     def rate(dt, blocks):
         return {"mbps": round(blocks * block_bytes / dt / 1e6, 1),
                 "msps": round(blocks * samples_per_block / dt / 1e6, 1),
-                "ms_per_block": round(dt / blocks * 1e3, 2)}
+                # 3 significant figures: a small block on a fast host
+                # takes a few microseconds, which 2 decimals read as 0
+                "ms_per_block": float(f"{dt / blocks * 1e3:.3g}")}
 
     # ---- leg 1: pipe read + frombuffer + halo concat ----
     stream, feeder = feed_pipe(pool, None)
