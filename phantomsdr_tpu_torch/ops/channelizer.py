@@ -219,9 +219,11 @@ def demodulate_from_bins(
 
     # c2r reads only the real part of the DC and Nyquist bins (as FFTW
     # and pocketfft do); zero their imaginary parts so every FFT
-    # library computes the same thing
-    edge = torch.ones(half + 1, device=dev)
-    edge[0] = edge[half] = 0.0
+    # library computes the same thing (a mask made on the device: an
+    # item written from Python is a host-to-device copy, which a CUDA
+    # graph's capture refuses)
+    k_edge = torch.arange(half + 1, device=dev)
+    edge = ((k_edge != 0) & (k_edge != half)).to(torch.float32)
     ssb_bins = torch.complex(ssb_bins.real, ssb_bins.imag * edge)
     ssb_wave = torch.fft.irfft(ssb_bins, n=a, norm="forward")   # [B, C, A]
     ssb_wave = torch.where(is_lsb, ssb_wave.flip(-1), ssb_wave)

@@ -118,8 +118,11 @@ def rds_baseband(dec_tail: torch.Tensor, params: RDSParams,
     bb = bb.reshape(c, 2, -1) * torch.where(fm_mask, 1.0, 0.0)[:, None, None]
     rms = torch.sqrt(torch.mean(bb * bb, dim=(1, 2), keepdim=True))
     # a true division (``scalar / tensor`` would multiply by a rounded
-    # reciprocal)
-    scale = rms.new_tensor(INT8_TARGET_RMS) / (rms + 1e-9)
+    # reciprocal); the numerator filled on the device, since a tensor
+    # made from a Python number is copied from the host, which a CUDA
+    # graph's capture refuses
+    scale = torch.full((), INT8_TARGET_RMS, dtype=rms.dtype,
+                       device=rms.device) / (rms + 1e-9)
     q = torch.clamp(torch.round(bb * scale), -127.0, 127.0).to(torch.int8)
     return dec_st.tail.reshape(c, 2 * (nl - 1)), q
 

@@ -35,6 +35,10 @@ sample history.
 The device is explicit: ``HopPipeline(cfg)`` runs on ``cuda`` and
 raises where there is none; ``device="cpu"`` runs every kernel's plain
 PyTorch version (the tests use it).
+
+On ``cuda`` a step is replayed as a captured CUDA graph where it can be
+(``step_graph``): the same kernels, shapes and results, issued by one
+graph launch instead of op by op from Python.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from .ops.channelizer import (
     MODE_AM, MODE_FM, ChannelState, ChannelTable, demodulate_batch,
     float_to_int16, init_channel_state,
 )
+from .ops.cuda import all_kernels
 from .ops.cuda.agc import agc_float, agc_int16
 from .ops.cuda.pilot import pilot_mix
 from .ops.cuda.waterfall import pyramid_width, waterfall_rows
@@ -76,6 +81,7 @@ from .ops.stereo import (
     make_stereo_params, pilot_bandpass, stereo_decode,
 )
 from .ops.windows import hann_window
+from .step_graph import StepGraphs, cuda_capture
 
 WATERFALL_MODES = ("views", "full", "off")
 
@@ -535,6 +541,13 @@ class HopPipeline:
                 "bandpass group delay; raise hop_batch")
         self._all_rows = torch.arange(cfg.hop_batch, dtype=torch.int32,
                                       device=self.device)
+        self._no_views = self.empty_views()
+        self._frame0_due = self.default_due_idx()
+        # the captured variants of the step (CUDA only; the CPU is eager)
+        self.graphs = (StepGraphs(self._eager_step, cfg.hop_batch,
+                                  all_kernels(), cuda_capture(self.device))
+                       if self.device.type == "cuda" else None)
+        self.last_step_replayed = False
 
     # ------------------------------------------------------------------
     def init_state(self, frame0: int = 0) -> HopState:
@@ -599,15 +612,43 @@ class HopPipeline:
         reset: [C] int32 RESET_* mask, one-shot carry zeroing.
         due_idx: [due_cap] int32 in-batch hop positions whose waterfall
         views to gather ('views' mode; defaults to the frame0=0 cadence).
+
+        On a CUDA device a step in 'views' or 'off' mode without a reset
+        mask is a replay of its variant's captured CUDA graph
+        (``step_graph.StepGraphs``; ``last_step_replayed`` says whether
+        it was); the first step of a variant runs op by op and captures
+        it.  A replay's state holds the graph's carries, and its outputs
+        the graph's buffers: both stay valid until the next step of this
+        pipeline, which writes them in place, so a caller that keeps an
+        older state or output clones it.  A state that is not the one the
+        last replay returned is copied in; a channel table, view table or
+        due_idx that is not the object passed last is copied in too (a
+        table's tensors are read again only as a new object).
         """
         if waterfall not in WATERFALL_MODES:
             raise ValueError(f"waterfall must be one of {WATERFALL_MODES}")
+        if views is None:
+            views = self._no_views
+        if waterfall == "views" and due_idx is None:
+            due_idx = self._frame0_due
+        self.last_step_replayed = False
+        if self.graphs is None or reset is not None or waterfall == "full":
+            return self._eager_step(state, raw, chans, views, waterfall,
+                                    reset, due_idx)
+        out = self.graphs.step(state, raw, chans, views, waterfall, due_idx)
+        self.last_step_replayed = self.graphs.replayed
+        return out
+
+    def _eager_step(self, state: HopState, raw: torch.Tensor,
+                    chans: ChannelTable, views: WaterfallViews,
+                    waterfall: str, reset: torch.Tensor | None,
+                    due_idx: torch.Tensor | None
+                    ) -> tuple[HopState, HopOutputs]:
+        """The step issued op by op (``step``'s arguments resolved)."""
         cfg = self.cfg
         b = self.hop_batch
         c = chans.l.shape[0]
         half = cfg.audio_fft_size // 2
-        if views is None:
-            views = self.empty_views()
         w = views.start.shape[0]
         d = self.due_cap if waterfall == "views" else 0
         packed, audio16, pwr_out, wf, rds8 = alloc_packed(
@@ -621,8 +662,6 @@ class HopPipeline:
         elif waterfall == "views":
             # the pyramid of the cadence-due hops only; the kernel reads
             # those rows of the spectrum in place
-            if due_idx is None:
-                due_idx = self.default_due_idx()
             pyr_due = waterfall_from_spectra(cfg, spec, due_idx)
             wf.copy_(gather_waterfall_views(pyr_due, views, self.view_cap))
 

@@ -58,6 +58,12 @@ class Metrics:
     device_errors: int = 0
     last_device_error: str = ""
     channel_rows: int = 0   # table width of the latest step (bucketing)
+    # served steps replayed as a captured CUDA graph, and issued op by op
+    # (the CPU, the mesh, reset steps, a variant's first step); graphs
+    # captured, the warm-up's included
+    graph_steps: int = 0
+    eager_steps: int = 0
+    graph_captures: int = 0
 
     def snapshot(self, cfg: ServerConfig) -> dict:
         el = max(time.monotonic() - self.start_time, 1e-9)
@@ -80,6 +86,9 @@ class Metrics:
             "device_errors": self.device_errors,
             "last_device_error": self.last_device_error,
             "channel_rows": self.channel_rows,
+            "graph_steps": self.graph_steps,
+            "eager_steps": self.eager_steps,
+            "graph_captures": self.graph_captures,
         }
 
 
@@ -322,6 +331,10 @@ class DSPDriver:
             t = self._due_idx[key] = to_device(key, torch.int32, self.device)
         return t, sel
 
+    def _graphs_on(self) -> bool:
+        """Whether the step may be a CUDA graph's replay (one card)."""
+        return not self.sharded and self.pipe.graphs is not None
+
     def _prepare_raw(self, block: np.ndarray):
         pre = host_preconvert(block, self.cfg.input_format)
         if self.sharded:
@@ -375,7 +388,9 @@ class DSPDriver:
         try:
             # warm every (bucket, waterfall-mode) variant once before
             # serving, so cuFFT plans, kernel builds and allocator pools
-            # exist before the first listener arrives
+            # exist before the first listener arrives; on a card each
+            # also with the AM PLL on and off, which captures the step's
+            # CUDA graphs of all of them (HopPipeline.step)
             t0 = time.monotonic()
             if self.device.type == "cuda":
                 # the warm-up's empty table runs no AM, RDS or noise
@@ -391,11 +406,17 @@ class DSPDriver:
                 if k is not None:
                     warm_state = self.pipe.resize_channel_rows(warm_state, k)
                 table, views = self._tables_for(k)
-                for m in ("views", "off"):
-                    warm_state, out = self.pipe.step(warm_state, raw,
-                                                     table, views, m)
-                    _Fetch(out.packed).result()
+                tables = ([table._replace(need_pll=pll)
+                           for pll in (False, True)]
+                          if self._graphs_on() else [table])
+                for t in tables:
+                    for m in ("views", "off"):
+                        warm_state, out = self.pipe.step(warm_state, raw, t,
+                                                         views, m)
+                        _Fetch(out.packed).result()
             del warm_state
+            if self._graphs_on():
+                self.metrics.graph_captures = self.pipe.graphs.captures
             where = (f"mesh x{cfg.mesh_devices} on "
                      f"{', '.join(map(str, self.devices))}"
                      if self.sharded else str(self.device))
@@ -522,6 +543,12 @@ class DSPDriver:
                     state = self.pipe.resize_channel_rows(state, k_cur)
                 continue
             self.metrics.frames += cfg.hop_batch
+            if self._graphs_on() and self.pipe.last_step_replayed:
+                self.metrics.graph_steps += 1
+            else:
+                self.metrics.eager_steps += 1
+            if self._graphs_on():
+                self.metrics.graph_captures = self.pipe.graphs.captures
             # one step in flight: fetch the previous step's outputs only
             # after this one is queued (overlaps transfer & compute)
             flush_pending()
