@@ -5,15 +5,30 @@ Replaces the per-sample ``lax.scan`` of ``am_sync_detect``
 liquid-dsp carrier PLL of the reference (src/signal.cpp:242-252).
 
 Bound on the card: the per-channel dependent chain of one step's
-samples (sincos, atan2, the loop update and the wrap, sample after
-sample), not its bytes.  ``chain_probe`` launches that loop alone over
-a carrier held in registers; its time is the floor the kernel is
-measured against.  The kernel runs one block per channel: its threads
-stage the carrier row in shared memory and leave, so that one thread
-runs the chain alone (no other thread it must reconverge with) and only
-records each sample's NCO phase; a second, fully parallel kernel turns
-those phases into the output.  The phase wrap subtracts or adds 2*pi
-where that equals ``fmod`` bit for bit and calls ``fmod`` elsewhere.
+samples, not its bytes.  The phase detector is taken as the identity
+arg(carrier * exp(-i*phase)) = wrap(arg(carrier) - phase): arg(carrier)
+does not depend on the loop, so the block's threads compute it (atan2)
+while they stage the row, and a step is a subtraction, a wrap, the loop
+update and the phase wrap.  The plain version's detector (sincos, the
+complex product, atan2) still runs where the identity is not the
+detector in float32: zero or non-finite carrier samples, an err within
+1e-4 of +-pi, and a loop frequency of 0.5 rad a sample or more (no
+carrier the loop could hold; noise alone walks there).  One warp runs
+each channel's loop: a round predicts 32 samples by the identity alone,
+then each lane applies that rule to its own sample from the predicted
+state, all at once, and the round commits the samples up to the first
+lane whose exact step disagrees -- so the transcendental functions
+leave the chain, and the result is the rule's bit for bit.
+``chain_probe`` launches those rounds alone over four samples' arg held
+in registers; its time is the floor the kernel is measured against.
+The kernel runs one block per channel: its threads stage the row's arg
+in shared memory and leave but the one warp, which records each
+sample's NCO phase; a second, fully parallel kernel turns those phases
+into the output.  The phase wrap subtracts or adds 2*pi where that
+equals ``fmod`` bit for bit and calls ``fmod`` elsewhere.  The identity
+rounds otherwise than the plain version's atan2 of the rounded product
+(a few 1e-7 rad an err), so the two agree to the tolerances of
+tests/test_torch_cuda.py, not bit for bit.
 
 ``am_sync_detect_plain`` is the same recursion in plain PyTorch (a
 Python loop over samples, vectorized over channels); the wrapper takes
@@ -103,10 +118,10 @@ def am_sync_detect(carrier: torch.Tensor, baseband: torch.Tensor,
 
 def chain_probe(carrier: torch.Tensor, phase0: torch.Tensor,
                 freq0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's chain alone, for timing: the same loop over L
-    samples per channel on four carrier samples held in registers, no
-    loads or stores inside it.  Returns its (phase, freq); not counted as
-    a launch of the kernel.  CUDA tensors only."""
+    """The kernel's chain alone, for timing: the same rounds over L
+    samples per channel on the arg of four carrier samples held in
+    registers, no stores.  Returns its (phase, freq); not counted as a
+    launch of the kernel.  CUDA tensors only."""
     require_cuda(carrier, "carrier", torch.complex64, 2)
     require_cuda(phase0, "phase0", torch.float32, 1)
     require_cuda(freq0, "freq0", torch.float32, 1)

@@ -86,21 +86,30 @@ def test_waterfall_kernel_matches_plain(dev, r, levels, real, base_idx, extra,
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("c,n,phase0,freq0", [
-    (7, 3000, "rand", 0.0),
+@pytest.mark.parametrize("c,n,phase0,freq0,edge", [
+    (7, 3000, "rand", 0.0, None),
     # phase0 at 0 and just below 2*pi: the wrap's edges
-    (7, 3000, 0.0, 0.0), (7, 3000, 2 * np.pi - 1e-6, 0.0),
+    (7, 3000, 0.0, 0.0, None), (7, 3000, 2 * np.pi - 1e-6, 0.0, None),
     # freq0 7.0: phase + freq passes 2*pi, so the subtraction wraps;
     # 13.0 >= 4*pi: the fmodf branch runs
-    (7, 3000, "rand", 7.0), (7, 3000, "rand", 13.0),
+    (7, 3000, "rand", 7.0, None), (7, 3000, "rand", 13.0, None),
     # more blocks than SMs; odd and short rows
-    (300, 1000, "rand", 0.0), (5, 3001, "rand", 0.0), (3, 100, "rand", 0.0),
+    (300, 1000, "rand", 0.0, None), (5, 3001, "rand", 0.0, None),
+    (3, 100, "rand", 0.0, None),
     # past one chain launch's 16384 samples: two launches carry the loop
-    (3, 17385, "rand", 0.0),
+    (3, 17385, "rand", 0.0, None),
+    # rx888toml.b12's rows: 18 AM listeners, 12 hops of 90 samples
+    (18, 1080, "rand", 0.0, None),
+    # the kernel's other detector: runs of signed zeros, NaN and inf
+    # samples at the start, in the middle and at the end of rows; the
+    # carrier's phase against phase0 a few ulp either side of +-pi (and
+    # 700 ulp, just outside the 1e-4 band the other detector takes)
+    (7, 3000, "rand", 0.0, "zeros"), (7, 3001, "rand", 0.0, "nonfinite"),
+    (8, 3000, "rand", 0.0, "near_pi"), (8, 3000, 0.0, 0.0, "near_pi"),
 ])
-def test_pll_kernel_matches_plain(dev, c, n, phase0, freq0):
-    """(L = 3001, 17385: not a multiple of the chain's four-sample
-    groups.)"""
+def test_pll_kernel_matches_plain(dev, c, n, phase0, freq0, edge):
+    """(L = 3001, 17385: not a multiple of the chain's 32-sample
+    rounds.)  NaN reaches the same outputs and carries on both sides."""
     g = torch.Generator(device=dev).manual_seed(3)
     t = torch.arange(n, device=dev, dtype=torch.float32)
     car = torch.polar(torch.ones(c, n, device=dev),
@@ -111,14 +120,81 @@ def test_pll_kernel_matches_plain(dev, c, n, phase0, freq0):
     p0 = (torch.rand(c, device=dev, generator=g) * 6 if phase0 == "rand"
           else torch.full((c,), phase0, dtype=torch.float32, device=dev))
     f0 = torch.full((c,), freq0, dtype=torch.float32, device=dev)
+    if edge is not None:
+        carrier = pll_edge_carrier(carrier, p0, edge)
     before = pll.KERNEL.launches
     got = pll.am_sync_detect(carrier, base, p0, f0)
     want = pll.am_sync_detect_plain(carrier, base, p0, f0)
     assert pll.KERNEL.launches == before + 1
-    assert float((got[0] - want[0]).abs().max()) <= 1e-5 * float(
+    nan = torch.isnan(want[0])
+    assert torch.equal(torch.isnan(got[0]), nan)
+    assert float((got[0] - want[0])[~nan].abs().max()) <= 1e-5 * float(
         base.abs().max())
-    assert torch.allclose(got[1], want[1], atol=1e-5)
-    assert torch.allclose(got[2], want[2], atol=1e-6)
+    assert torch.allclose(got[1], want[1], atol=1e-5, equal_nan=True)
+    assert torch.allclose(got[2], want[2], atol=1e-6, equal_nan=True)
+
+
+def pll_edge_carrier(carrier, p0, edge):
+    """``carrier`` with the samples that K-PLL's chain hands to the mixed
+    detector (sincos, product, atan2) written in."""
+    c, n = carrier.shape
+    x = torch.view_as_real(carrier).cpu().numpy().copy()    # [c, n, 2]
+    rng = np.random.default_rng(n + c)
+    if edge == "zeros":
+        # per row a lone zero and runs of 1..40 at the start, middle, end
+        for r in range(c):
+            for a, b in ((0, 1 + 5 * r), (n // 2, n // 2 + 40),
+                         (n // 3 + r, n // 3 + r + 1), (n - 3 - r, n)):
+                x[r, a:b] = np.where(rng.random((b - a, 2)) < 0.5, -0.0, 0.0)
+    elif edge == "nonfinite":
+        # NaN poisons the rest of its row (as in the plain version);
+        # inf gives a finite err on both sides
+        x[0, 0, 0] = np.nan
+        x[1, n // 2, 1] = np.nan
+        x[2, n - 1] = np.nan
+        x[3, n // 2, 0] = np.inf
+        x[4, 0] = (-np.inf, np.inf)
+        x[5, n - 1, 1] = -np.inf
+    elif edge == "near_pi":
+        ulp = float(np.spacing(np.float32(np.pi)))
+        k = np.array([-700, -8, -4, -2, 2, 4, 8, 700], np.float64)[:c]
+        a = p0.cpu().numpy().astype(np.float64) + np.pi + k * ulp
+        x[:, 0, 0], x[:, 0, 1] = np.cos(a), np.sin(a)
+    return torch.view_as_complex(torch.from_numpy(x)).to(carrier.device)
+
+
+@pytest.mark.parametrize("kind,freq0", [
+    # noise far from lock: the rounds predict with the two-sided wrap (3),
+    # and with k*2pi subtracted by fmaf, for freq below zero (-9) and past
+    # the fmodf branch (40)
+    ("noise", 3.0), ("noise", -9.0), ("noise", 40.0),
+    # rows of signed zeros (a channel slot without a listener), predicted
+    # from the phase's quadrant, near lock and far from it
+    ("zeros", 0.0), ("zeros", 7.0),
+])
+def test_pll_kernel_is_the_plain_version_on_mixed_samples(dev, kind, freq0):
+    """Where the rule takes the mixed detector on every sample -- a loop
+    frequency of 0.5 rad a sample or more all along the row, or a
+    carrier of zeros -- the rounds commit the plain version's steps bit
+    for bit, whatever they predicted."""
+    c, n = 12, 3001
+    g = torch.Generator(device=dev).manual_seed(20)
+    if kind == "noise":
+        carrier = torch.randn(c, n, dtype=torch.complex64, device=dev,
+                              generator=g)
+    else:
+        signs = torch.rand(c, n, 2, device=dev, generator=g) < 0.5
+        carrier = torch.view_as_complex(
+            torch.where(signs, -0.0, 0.0).contiguous())
+    base = torch.randn(c, n, dtype=torch.complex64, device=dev, generator=g)
+    p0 = torch.rand(c, device=dev, generator=g) * 6
+    f0 = torch.full((c,), freq0, dtype=torch.float32, device=dev)
+    got = pll.am_sync_detect(carrier, base, p0, f0)
+    want = pll.am_sync_detect_plain(carrier, base, p0, f0)
+    if kind == "noise":   # the walk stays far from lock
+        assert float(want[2].abs().min()) >= 0.5
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
 
 
 # warm-up points t0 = W-1-seen (clamped to [0, L]), where the kernel's
